@@ -14,13 +14,29 @@ phase that does not hold:
 4. the fused solve at the refine_dense shape (S=8192 slab rows, z=256,
    J=32) on road-like adjacency with Yen-style masks and finite caps:
    both kernels against their plain versions on every row, bitwise, and
-   timed with CUDA events beside their bounds;
+   timed with CUDA events beside their bounds; the refine_dense cell's
+   step (capped at 64 iterations) gives the same bytes;
 5. serving: ``KSPService(engine="cuda_bf", device="cuda")`` answers 32
    queries (trips of 8-16 hops), one UpdateBatch, and 32 more on a
    64x64 road grid; the same trace on the port's plain ``dense_bf``
    engine must give the same (paths, epoch), a few answers must match
    host Yen on the full graph, and the serving run must have launched
-   ``bf_solve_grouped``.
+   ``bf_solve_grouped``;
+6. index kernels at ragged shapes: ``ktrop_relax_step`` and
+   ``ktrop_solve`` bitwise against their plain versions at z in
+   {1, 96, 200, 256} and k in {1, 2, 10, 16}; ``bound_dist`` and
+   ``bound_dist_blocked`` against ``bound_dist_ref`` (rtol 2e-5) at E in
+   {1, 37, 2048} with a ragged B;
+7. the kspdg ``levels`` cell (S=8192, z=256, k=10, 48 iterations) on
+   road-like subgraphs with integer vfrag weights, through the cell's own
+   step: the step kernel bitwise against the plain step on every row,
+   the fused solve (D and per-row iterations) bitwise against the plain
+   solve on every row;
+8. the kspdg ``maintain`` cell (S=122,880, E=2,048, B=4,000,000) through
+   the cell's own step (profile sort + ``bound_dist``), against the plain
+   ``dense.bound_dist_batch`` (rtol 1e-4, atol 1e-3) and against
+   ``bound_dist_ref`` (rtol 2e-5), with a float64 clip-sum as a third
+   opinion on one chunk; then ``kspdg_smoke(device="cuda")``.
 
 It imports nothing of JAX or of the reference package.  Without a card
 it exits non-zero and prints no result.  The last three lines are the
@@ -48,6 +64,8 @@ FP32_OPS_PER_S = 67e12
 SEED = 0
 DENSE_S, DENSE_Z, DENSE_J = 8192, 256, 32  # refine_dense shape inventory
 PLAIN_CHUNK = 256  # slab rows per plain-version call (bounds its memory)
+LEVELS_K, LEVELS_ITERS = 10, 48  # the levels cell's ktrop_solve arguments
+BD_CHUNK = 1 << 18  # queries per plain bound-distance call
 
 
 def log(*parts):
@@ -205,7 +223,7 @@ def phase_ragged(torch, np, dev):
         f"at (S,J,z) in {shapes}, general and one-hot masks")
 
 
-def phase_refine_dense(torch, dev):
+def phase_refine_dense(torch, dev, cell):
     from repro_torch.engine import dense
     from repro_torch.kernels import bf_relax, ops, ref
 
@@ -243,13 +261,23 @@ def phase_refine_dense(torch, dev):
         torch, lambda: ops.bf_solve_grouped(adj, init, bv, so, bn, cap),
         repeats=5)
     start.record()
-    want_d, want_p = chunked(torch, ref.bf_solve_grouped_ref, S,
-                             adj, init, bv, so, bn, cap)
+    want_d, want_p, want_it = chunked(
+        torch, lambda *a: ref.bf_solve_grouped_ref(*a, with_iters=True), S,
+        adj, init, bv, so, bn, cap)
     end.record()
     torch.cuda.synchronize()
     solve_plain_ms = start.elapsed_time(end)
     check(torch.equal(dist, want_d), "bf_solve_grouped dist differs")
     check(torch.equal(parent, want_p), "bf_solve_grouped parents differ")
+    check(torch.equal(iters.amax(dim=1), want_it),
+          "bf_solve_grouped iterations per row differ")
+    # the refine_dense cell's own step: its 64-iteration cap does not bind
+    check(int(want_it.max()) < 64, "refine_dense rows need 64+ iterations")
+    check(tuple(cell.arg_specs[0].shape) == (S, z, z), "refine_dense shape")
+    cd, cp, cit = cell.step_fn(adj, init, bv, so, bn, cap)
+    check(torch.equal(cd, dist) and torch.equal(cp, parent)
+          and torch.equal(cit, want_it),
+          "the refine_dense cell's step differs")
     # the dense engine's formulation on a subset of rows (one-hot spurs)
     sub = rows[:: S // 64]
     dd, _ = dense.bf_solve_grouped(adj[sub], init[sub], bv[sub], so[sub],
@@ -267,7 +295,8 @@ def phase_refine_dense(torch, dev):
         f"plain {solve_plain_ms:.1f} ms, bound {solve_bound:.3f} ms "
         f"({solve_by}); iterations per block max {int(it.max())} mean "
         f"{float(it.mean()):.2f}; reached share {float(reached):.3f}; "
-        f"dist and parents bitwise equal on all {S} rows")
+        f"dist, parents and iterations per row bitwise equal to plain on "
+        f"all {S} rows, and to the refine_dense cell's step")
     return {
         "bf_relax_step": dict(ms=step_ms, plain_ms=step_plain_ms,
                               bound_ms=step_bound, bound_by=step_by,
@@ -386,6 +415,255 @@ def phase_serving(torch, np):
     return launches
 
 
+def phase_ragged_index(torch, np, dev):
+    from repro_torch.kernels import ops, ref
+
+    rng = np.random.default_rng(SEED)
+    for z in (1, 96, 200, 256):
+        S = 3
+        adj = rng.integers(1, 9, (S, z, z)).astype(np.float32)
+        adj[rng.random((S, z, z)) > 0.3] = ref.INF
+        for s in range(S):
+            np.fill_diagonal(adj[s], 0.0)
+        adj = torch.from_numpy(adj).to(dev)
+        src = torch.from_numpy(rng.integers(0, z, S).astype(np.int32)).to(dev)
+        for k in (1, 2, 10, 16):
+            want_d, want_it = ref.ktrop_solve_ref(adj, src, k)
+            d, it = ops.ktrop_solve(adj, src, k, with_iters=True)
+            check(torch.equal(d, want_d) and torch.equal(it, want_it),
+                  ("ktrop_solve", z, k))
+            d3, it3 = ops.ktrop_solve(adj, src, k, 3, with_iters=True)  # cap
+            w3, wit3 = ref.ktrop_solve_ref(adj, src, k, 3)
+            check(torch.equal(d3, w3) and torch.equal(it3, wit3),
+                  ("ktrop_solve max_iters=3", z, k))
+            D = w3  # a mid-relaxation state, ascending along k
+            for _ in range(2):
+                got = ops.ktrop_relax_step(D, adj)
+                want = ref.ktrop_relax_ref(D, adj)
+                check(torch.equal(got, want), ("ktrop_relax_step", z, k))
+                check(not torch.isinf(got).any(), ("+inf in ktrop", z, k))
+                D = want
+    for E in (1, 37, 2048):
+        S, B = 5, 1000  # ragged: not a multiple of the TPU's 256
+        w = np.sort(rng.uniform(0.1, 5.0, (S, E)).astype(np.float32), -1)
+        n = rng.integers(1, 9, (S, E)).astype(np.float32)
+        pad = rng.integers(0, E // 4 + 1, S)
+        for s in range(S):  # padding at the tail: w = INF, n = 0
+            if pad[s]:
+                w[s, -pad[s]:] = ref.INF
+                n[s, -pad[s]:] = 0.0
+        cb = np.concatenate([np.zeros((S, 1), np.float32),
+                             np.cumsum(n, -1)[:, :-1]], -1)
+        sub = rng.integers(0, S, B).astype(np.int32)
+        sub_blocked = rng.integers(0, S, -(-B // 256)).astype(np.int32)
+        phi = rng.uniform(0, 1.1 * float(n.sum(-1).max()), B).astype(
+            np.float32)
+        w, n, cb, sub, sub_blocked, phi = (
+            torch.from_numpy(a).to(dev)
+            for a in (w, n, cb, sub, sub_blocked, phi))
+        for got, sub_q in (
+                (ops.bound_dist(w, n, cb, sub, phi), sub),
+                (ops.bound_dist_blocked(w, n, cb, sub_blocked, phi),
+                 sub_blocked.repeat_interleave(256)[:B])):
+            want = ref.bound_dist_ref(w, n, cb, sub_q, phi)
+            torch.testing.assert_close(got, want, rtol=2e-5, atol=0.0)
+    torch.cuda.synchronize()
+    log("[ragged-index] ktrop_relax_step and ktrop_solve (to the fixed "
+        "point and capped at 3) bitwise equal to plain at z in "
+        "{1, 96, 200, 256}, k in {1, 2, 10, 16}; bound_dist and "
+        "bound_dist_blocked within rtol 2e-5 of bound_dist_ref at E in "
+        "{1, 37, 2048}, B=1000")
+
+
+def timed(torch, fn):
+    """One CUDA-event timing of ``fn()``: (result, ms)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def phase_levels(torch, dev, cell):
+    from repro_torch.kernels import ops, ref
+
+    step = cell.step_fn
+    (S, z, _), _ = (spec.shape for spec in cell.arg_specs)
+    k, iters_cap = LEVELS_K, LEVELS_ITERS
+    adj = road_inputs(torch, S, 1, z, dev)[0]  # integer vfrag weights 1-100
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    src = torch.randint(0, z, (S,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    torch.cuda.synchronize()
+    log(f"[levels] {cell.name} ({cell.note}): adjacency "
+        f"{adj.numel() * 4 / 2**30:.2f} GiB on the card")
+
+    # --- the cell's own step (the main path), counted
+    ops.reset_launches()
+    D = step(adj, src)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    check(launches["ktrop_solve"] == 1, ("levels launches", launches))
+    check(tuple(D.shape) == (S, k, z), "levels output shape")
+
+    # --- the fused solve: iterations, time, the plain fixed point
+    D2, iters = ops.ktrop_solve(adj, src, k, iters_cap, with_iters=True)
+    check(torch.equal(D, D2), "levels: the step and the launcher differ")
+    solve_ms = cuda_ms(torch, lambda: step(adj, src), repeats=5)
+    (want_d, want_it), solve_plain_ms = timed(torch, lambda: chunked(
+        torch, lambda a, s: ref.ktrop_solve_ref(a, s, k, iters_cap), S,
+        adj, src))
+    check(torch.equal(D, want_d), "ktrop_solve differs from plain")
+    check(torch.equal(iters, want_it), "ktrop_solve iterations differ")
+    it = iters.double()
+    finite = (D < ref.INF).double().sum(dim=1)  # levels found per vertex
+    adj_bytes = adj.numel() * 4
+    n_d = S * k * z
+    # operations this data needs per row and relaxation: a (u, v) pair with
+    # no edge costs one add and one compare (the early exit), an edge at
+    # most k of each
+    nnz = (adj < ref.INF).sum(dim=(1, 2)).double()
+    row_ops = 2.0 * (z * z + k * nnz)
+    solve_bound, solve_by = bound_ms(adj_bytes + S * 4 + n_d * 4 + S * 4,
+                                     float((row_ops * iters.double()).sum()))
+    log(f"[levels] ktrop_solve: {solve_ms:.3f} ms (median of 5), plain "
+        f"{solve_plain_ms:.1f} ms (in {PLAIN_CHUNK}-row chunks), bound "
+        f"{solve_bound:.3f} ms ({solve_by}); iterations per row max "
+        f"{int(it.max())} mean {float(it.mean()):.2f} (cap {iters_cap}); "
+        f"levels found per vertex mean {float(finite.mean()):.2f}; finite "
+        f"adjacency entries per row mean {float(nnz.mean()):.1f} of {z * z}; "
+        f"D and "
+        f"iterations bitwise equal to plain on all {S} rows")
+
+    # --- one relaxation from a mid-relaxation state (ktrop_relax_step)
+    Dm = ops.ktrop_solve(adj, src, k, 8)
+    step_ms = cuda_ms(torch, lambda: ops.ktrop_relax_step(Dm, adj), repeats=7)
+    got = ops.ktrop_relax_step(Dm, adj)
+    want, step_plain_ms = timed(
+        torch, lambda: chunked(torch, ref.ktrop_relax_ref, S, Dm, adj))
+    check(torch.equal(got, want), "ktrop_relax_step differs at levels")
+    step_bound, step_by = bound_ms(adj_bytes + 2 * n_d * 4,
+                                   float(row_ops.sum()))
+    log(f"[levels] ktrop_relax_step: {step_ms:.3f} ms (median of 7), plain "
+        f"{step_plain_ms:.1f} ms, bound {step_bound:.3f} ms ({step_by}), "
+        f"bitwise equal on all {S} rows")
+    return launches, {
+        "ktrop_relax_step": dict(ms=step_ms, plain_ms=step_plain_ms,
+                                 bound_ms=step_bound, bound_by=step_by,
+                                 max_abs_err=max_abs_err(torch, got, want)),
+        "ktrop_solve": dict(ms=solve_ms, plain_ms=solve_plain_ms,
+                            bound_ms=solve_bound, bound_by=solve_by,
+                            max_abs_err=max_abs_err(torch, D, want_d)),
+    }
+
+
+def maintain_inputs(torch, S, E, B, dev):
+    """A maintain-sized profile made on the card from a seed: per
+    subgraph 1,024-2,048 real edges with unit weights in [0.5, 1.5) and
+    vfrag counts 1-16, the rest padding (w = INF, n = 0), unsorted; B
+    bounding paths on uniform subgraphs with integer φ ≤ the total
+    fragments of their own subgraph."""
+    from repro_torch.kernels.ref import INF
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    unit_w = 0.5 + torch.rand((S, E), generator=gen, device=dev)
+    unit_n = torch.randint(1, 17, (S, E), generator=gen, device=dev).float()
+    n_real = torch.randint(E // 2, E + 1, (S, 1), generator=gen, device=dev)
+    pad = torch.rand((S, E), generator=gen, device=dev).argsort(dim=1) \
+        >= n_real  # a random set of E - n_real padded slots per row
+    unit_w.masked_fill_(pad, INF)
+    unit_n.masked_fill_(pad, 0.0)
+    sub = torch.randint(0, S, (B,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    total = unit_n.sum(dim=1)
+    phi = torch.floor(torch.rand((B,), generator=gen, device=dev)
+                      * (total[sub.long()] + 1.0)).clamp_(max=total[sub.long()])
+    return unit_w, unit_n, sub, phi
+
+
+def phase_maintain(torch, dev, cell):
+    from repro_torch.engine import dense
+    from repro_torch.kernels import ops, ref
+
+    step = cell.step_fn
+    (S, E), _, (B,), _ = (spec.shape for spec in cell.arg_specs)
+    unit_w, unit_n, sub, phi = maintain_inputs(torch, S, E, B, dev)
+    torch.cuda.synchronize()
+    log(f"[maintain] {cell.name} ({cell.note}): profile "
+        f"{unit_w.numel() * 4 / 1e9:.3f} GB per [S,E] array")
+
+    # --- the cell's own step (the main path), counted
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    bd = step(unit_w, unit_n, sub, phi)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(launches["bound_dist"] == 1, ("maintain launches", launches))
+    check(tuple(bd.shape) == (B,) and bool(torch.isfinite(bd).all()),
+          "maintain output is not [B] and finite")
+    step_ms = cuda_ms(torch, lambda: step(unit_w, unit_n, sub, phi),
+                      repeats=3)
+
+    # --- the profile the step sorts, and the kernel on it alone
+    (w_s, n_s, cum_n), sort_ms = timed(
+        torch, lambda: dense.sort_profile(unit_w, unit_n))
+    cb = cum_n.sub_(n_s)
+    got = ops.bound_dist(w_s, n_s, cb, sub, phi)
+    check(torch.equal(got, bd), "maintain: the step and the kernel differ")
+    kernel_ms = cuda_ms(torch, lambda: ops.bound_dist(w_s, n_s, cb, sub, phi),
+                        repeats=5)
+    want_ref, ref_ms = timed(torch, lambda: torch.cat([
+        ref.bound_dist_ref(w_s, n_s, cb, sub[i:i + BD_CHUNK],
+                           phi[i:i + BD_CHUNK])
+        for i in range(0, B, BD_CHUNK)]))
+    torch.testing.assert_close(got, want_ref, rtol=2e-5, atol=0.0)
+    want, plain_ms = timed(torch, lambda: torch.cat([
+        dense.bound_dist_batch(unit_w, unit_n, sub[i:i + BD_CHUNK],
+                               phi[i:i + BD_CHUNK])
+        for i in range(0, B, BD_CHUNK)]))
+    rel = ((got.double() - want.double()).abs()
+           / want.double().abs().clamp(min=1e-30))
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+    # a third opinion: the clip-sum in float64 on the first chunk
+    q = slice(0, BD_CHUNK)
+    sq = sub[q].long()
+    take = torch.minimum((phi[q].double()[:, None] - cb[sq].double())
+                         .clamp(min=0.0), n_s[sq].double())
+    f64 = (torch.where(n_s[sq] > 0, w_s[sq].double(), 0.0) * take).sum(dim=1)
+
+    def rel64(x):
+        return float(((x[q].double() - f64).abs()
+                      / f64.abs().clamp(min=1e-30)).max())
+
+    bytes_moved = 3 * S * E * 4 + B * 12
+    kb, kby = bound_ms(bytes_moved, 5.0 * B * E)
+    log(f"[maintain] step (sort + bound_dist) {step_ms:.3f} ms (median of "
+        f"3), peak {peak / 1e9:.2f} GB allocated; profile sort "
+        f"{sort_ms:.3f} ms; bound_dist {kernel_ms:.3f} ms (median of 5), "
+        f"bound {kb:.3f} ms ({kby}); plain bound_dist_ref {ref_ms:.1f} ms, "
+        f"plain dense.bound_dist_batch {plain_ms:.1f} ms (in chunks of "
+        f"{BD_CHUNK}); largest relative error vs bound_dist_batch "
+        f"{float(rel.max()):.3e}; vs a float64 clip-sum on {BD_CHUNK} "
+        f"queries: kernel {rel64(got):.3e}, bound_dist_batch "
+        f"{rel64(want):.3e}, bound_dist_ref {rel64(want_ref):.3e}")
+    return launches, {
+        "bound_dist": dict(ms=kernel_ms, plain_ms=ref_ms, bound_ms=kb,
+                           bound_by=kby,
+                           max_abs_err=max_abs_err(torch, got, want_ref)),
+    }
+
+
+def phase_kspdg_smoke():
+    from repro_torch.configs.base import get_arch
+
+    out = get_arch("kspdg").smoke_fn(device="cuda")
+    check(out == {"engine_ksp_checked": 6}, ("kspdg_smoke", out))
+    log(f"[kspdg_smoke] engine_ksp on the card equals host Yen: {out}")
+
+
 def main() -> int:
     import torch
 
@@ -407,16 +685,39 @@ def main() -> int:
     t_start = time.perf_counter()
 
     phase_build()
-    phase_ragged(torch, np, dev)
-    timings = phase_refine_dense(torch, dev)
-    launches = phase_serving(torch, np)
+    from repro_torch.configs.base import get_arch
 
-    replaces = "src/repro/kernels/bf_relax.py:69"
+    cells = {cell.shape: cell for cell in get_arch("kspdg").cells()}
+    phase_ragged(torch, np, dev)
+    timings = phase_refine_dense(torch, dev, cells["refine_dense"])
+    launches = phase_serving(torch, np)
+    phase_ragged_index(torch, np, dev)
+    torch.cuda.empty_cache()
+    for path, shape in ((phase_levels, "levels"),
+                        (phase_maintain, "maintain")):
+        path_launches, path_timings = path(torch, dev, cells[shape])
+        timings.update(path_timings)
+        launches = {name: launches.get(name, 0) + n
+                    for name, n in path_launches.items()}
+        torch.cuda.empty_cache()
+    phase_kspdg_smoke()
+
+    sources = {  # kernel -> (CUDA source, the TPU kernel it replaces)
+        "bf_relax_step": ("bf_relax.cu", "src/repro/kernels/bf_relax.py:69"),
+        "bf_solve_grouped": ("bf_relax.cu",
+                             "src/repro/kernels/bf_relax.py:69"),
+        "ktrop_relax_step": ("ktrop.cu", "src/repro/kernels/ktrop.py:56"),
+        "ktrop_solve": ("ktrop.cu", "src/repro/kernels/ktrop.py:56"),
+        "bound_dist": ("bound_dist.cu",
+                       "src/repro/kernels/bound_dist.py:36"),
+    }
+    check(launches["ktrop_solve"] > 0 and launches["bound_dist"] > 0,
+          ("the index cells did not launch their kernels", launches))
     kernels = [
-        dict(name=name, route="cuda", source="src/repro_torch/csrc/bf_relax.cu",
+        dict(name=name, route="cuda", source=f"src/repro_torch/csrc/{src}",
              replaces=replaces, launches=launches[name], library_ms=None,
              **timings[name])
-        for name in ("bf_relax_step", "bf_solve_grouped")
+        for name, (src, replaces) in sources.items()
     ]
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -10,9 +10,9 @@ pointer-chasing and priority queues.  Here it becomes:
   * early termination → distance-cap clamping inside the relaxation
 
 The functions here are the plain PyTorch versions (any device); the
-fused Hopper kernel of the same solve lives in ``kernels/`` and is held
-to them bit for bit.  ``pack_subgraphs`` produces the same bytes as the
-reference package's.
+Hopper kernels of the same solves (``kernels/``) are held to them, bit
+for bit where only min, compare and add are involved.  ``pack_subgraphs``
+produces the same bytes as the reference package's.
 """
 
 from __future__ import annotations
@@ -221,3 +221,131 @@ def bf_parents_grouped(adj, dist, spur_onehot, banned_next):
     reached = dist < INF / 2
     src = dist <= 0.0
     return torch.where(ok & reached & ~src, best_u, -1).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# flat layout: one problem per adjacency row (the grouped layout at J=1)
+# ---------------------------------------------------------------------------
+def _one_problem(m):
+    return None if m is None else m[:, None]
+
+
+def bf_step(dist, adj, spur_onehot, banned_next):
+    """One min-plus relaxation of P independent problems: dist [P,z],
+    adj [P,z,z], spur_onehot/banned_next [P,z] bool → [P,z].  The grouped
+    step with one problem per row (the same arithmetic per element)."""
+    return bf_step_grouped(dist[:, None], adj, spur_onehot[:, None],
+                           banned_next[:, None])[:, 0]
+
+
+def bf_solve(adj, init_dist, banned_v=None, spur_onehot=None,
+             banned_next=None, cap=None, max_iters: int | None = None):
+    """Converged multi-source distances [P,z] and the iteration count
+    (an int32 device scalar): :func:`bf_solve_grouped` at J=1, so cap is
+    [P] and ``max_iters`` defaults to z."""
+    dist, iters = bf_solve_grouped(
+        adj, init_dist[:, None], _one_problem(banned_v),
+        _one_problem(spur_onehot), _one_problem(banned_next),
+        cap=_one_problem(cap), max_iters=max_iters)
+    return dist[:, 0], iters
+
+
+def bf_parents(adj, dist, spur_onehot, banned_next):
+    """Backpointers [P,z] int32 of a converged flat distance field
+    (:func:`bf_parents_grouped` at J=1)."""
+    return bf_parents_grouped(adj, dist[:, None], spur_onehot[:, None],
+                              banned_next[:, None])[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# k-tropical relaxation: k distinct smallest walk distances
+# ---------------------------------------------------------------------------
+def ktrop_step(D, adj, distinct: bool = True):
+    """D [P,k,z] ascending per (p,:,v) → one relaxation round [P,k,z].
+
+    Per v: sort D[:,v] with every one-step extension D[j,u]+A[u,v], and
+    (``distinct``) mask each value equal to its predecessor as INF and
+    sort again; keep the k smallest.  With ``distinct`` the result is the
+    k smallest distinct values below INF, padded with INF (a value
+    overflowing to +inf is never among them)."""
+    P, k, z = D.shape
+    cand = D[:, :, :, None] + adj[:, None, :, :]  # [P,k,z,z]
+    cand = cand.permute(0, 3, 1, 2).reshape(P, z, k * z)
+    allv = torch.cat([D.transpose(1, 2), cand], dim=-1).sort(dim=-1).values
+    if distinct:
+        dup = torch.zeros_like(allv, dtype=torch.bool)
+        dup[..., 1:] = allv[..., 1:] == allv[..., :-1]
+        allv = torch.where(dup, INF, allv).sort(dim=-1).values
+    return allv[..., :k].transpose(1, 2).contiguous()
+
+
+def ktrop_solve_iters(adj, src, k: int, max_iters: int | None = None,
+                      distinct: bool = True):
+    """:func:`ktrop_solve` and, per row, the relaxations it ran (int32
+    [P]: up to and including the first that decreased nothing in the
+    row, at most ``max_iters``).  A relaxation keeps D's own levels, so
+    no value grows; one that decreases nothing returns D again.  The
+    loop therefore stops once every row has stopped (one host read per
+    relaxation: this plain version is off the serving path), and its
+    result equals the reference's global early-exit loop bit for bit."""
+    P, z, _ = adj.shape
+    D = torch.full((P, k, z), INF, dtype=torch.float32, device=adj.device)
+    D[torch.arange(P, device=adj.device), 0, src.long()] = 0.0
+    iters = torch.zeros(P, dtype=torch.int32, device=adj.device)
+    active = torch.ones(P, dtype=torch.bool, device=adj.device)
+    for _ in range(z * k + 8 if max_iters is None else max_iters):
+        new = ktrop_step(D, adj, distinct)
+        iters += active
+        active &= (new < D).flatten(1).any(dim=1)
+        D = new
+        if not bool(active.any()):
+            break
+    return D, iters
+
+
+def ktrop_solve(adj, src, k: int, max_iters: int | None = None,
+                distinct: bool = True):
+    """k distinct smallest walk distances from src to every vertex.
+
+    adj [P,z,z]; src int [P] → D [P,k,z] ascending (INF padded);
+    ``max_iters`` defaults to z·k+8, as in the reference."""
+    return ktrop_solve_iters(adj, src, k, max_iters, distinct)[0]
+
+
+# ---------------------------------------------------------------------------
+# bound distances: BD(φ) = sum of the φ smallest unit weights
+# ---------------------------------------------------------------------------
+def sort_profile(unit_w, unit_n):
+    """The ascending unit-weight profile: (w_sorted, n_sorted, cum_n),
+    sorted along the last axis (stable, as ``jnp.argsort``), with
+    cum_n the running fragment count.  Padding (w = INF, n = 0) sorts
+    last and adds no fragments."""
+    w_sorted, order = torch.sort(unit_w, dim=-1, stable=True)
+    n_sorted = unit_n.gather(-1, order)
+    return w_sorted, n_sorted, n_sorted.cumsum(dim=-1)
+
+
+def bound_dist(unit_w, unit_n, phi):
+    """BD over one subgraph's profile: unit_w [E] unit weights (INF
+    pad), unit_n [E] vfrag counts, phi [B] fragment counts → [B]
+    (:func:`bound_dist_batch` with every path on that subgraph)."""
+    sub = torch.zeros(phi.shape[0], dtype=torch.long, device=phi.device)
+    return bound_dist_batch(unit_w[None], unit_n[None], sub, phi)
+
+
+def bound_dist_batch(unit_w, unit_n, sub_of_path, phi):
+    """Vectorized BD for a batch of bounding paths: unit_w/unit_n [S,E],
+    sub_of_path [B] int, phi [B] → [B].  Sort + weighted prefix sums +
+    searchsorted over a [B,E] prefix row gathered per path, as the
+    reference: BD = prev_w + (φ - prev_n)·w[i] at the block i holding
+    the φ-th fragment."""
+    w_sorted, n_sorted, cum_n = sort_profile(unit_w, unit_n)
+    cum_w = (n_sorted * w_sorted).cumsum(dim=-1)
+    sub = sub_of_path.long()
+    cn, cw, ws = cum_n[sub], cum_w[sub], w_sorted[sub]
+    i = torch.searchsorted(cn, phi[:, None].contiguous(), side="left")
+    i = i.clamp(0, cn.shape[-1] - 1)
+    prev = (i - 1).clamp(min=0)
+    prev_n = torch.where(i > 0, cn.gather(1, prev), 0.0)[:, 0]
+    prev_w = torch.where(i > 0, cw.gather(1, prev), 0.0)[:, 0]
+    return prev_w + (phi - prev_n) * ws.gather(1, i)[:, 0]

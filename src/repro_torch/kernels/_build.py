@@ -8,7 +8,9 @@ never served a stale build.  Builds go to ``repro_torch/build/`` (listed
 in ``.gitignore``); :func:`build_all` starts one ``nvcc`` per source, all
 at once.
 
-Nothing here runs at import: the CPU-only test host has no ``nvcc``.
+It also holds what every launcher checks: :func:`check_tensor` before
+a launch and :func:`check_launch` after it.  Nothing here runs at
+import: the CPU-only test host has no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -24,6 +26,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
+
+# dynamic shared memory one block may opt into on sm_90 (227 KiB)
+SMEM_LIMIT = 232_448
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -88,3 +93,28 @@ def library(name: str) -> ctypes.CDLL:
     if not path.exists():
         path = build_all()[name]
     return ctypes.CDLL(str(path))
+
+
+def check_tensor(name, t, dtype, shape, device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    the CUDA ``device``."""
+    import torch
+
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
+    if t.device != device or device.type != "cuda":
+        raise ValueError(f"{name} must lie on the CUDA device {device}, "
+                         f"got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def check_launch(err: int, name: str) -> None:
+    """Raise if a C launcher returned a CUDA error (a refused launch)."""
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")

@@ -18,10 +18,7 @@ import functools
 
 import torch
 
-from ._build import library
-
-# dynamic shared memory one block may opt into on sm_90 (227 KiB)
-SMEM_LIMIT = 232_448
+from ._build import SMEM_LIMIT, check_launch, check_tensor, library
 _TILES = (32, 16, 8, 4, 2, 1)
 
 
@@ -66,37 +63,17 @@ def _lib():
     return lib
 
 
-def _check(name, t, dtype, shape, device):
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
-    if t.device != device or device.type != "cuda":
-        raise ValueError(f"{name} must lie on the CUDA device {device}, "
-                         f"got {t.device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-
-
 def relax_step(dist, adj, spur_onehot, banned_next, cap):
     """Launch ``bf_relax_step``: one masked relaxation, the Pallas
     ``bf_relax`` contract.  dist [S,J,z] f32, adj [S,z,z] f32,
     spur_onehot/banned_next [S,J,z] bool, cap [S,J] f32 → [S,J,z] f32."""
     S, J, z = dist.shape
     dev = dist.device
-    _check("dist", dist, torch.float32, (S, J, z), dev)
-    _check("adj", adj, torch.float32, (S, z, z), dev)
-    _check("spur_onehot", spur_onehot, torch.bool, (S, J, z), dev)
-    _check("banned_next", banned_next, torch.bool, (S, J, z), dev)
-    _check("cap", cap, torch.float32, (S, J), dev)
+    check_tensor("dist", dist, torch.float32, (S, J, z), dev)
+    check_tensor("adj", adj, torch.float32, (S, z, z), dev)
+    check_tensor("spur_onehot", spur_onehot, torch.bool, (S, J, z), dev)
+    check_tensor("banned_next", banned_next, torch.bool, (S, J, z), dev)
+    check_tensor("cap", cap, torch.float32, (S, J), dev)
     out = torch.empty_like(dist)
     if S == 0 or J == 0 or z == 0:
         return out
@@ -107,27 +84,28 @@ def relax_step(dist, adj, spur_onehot, banned_next, cap):
             banned_next.data_ptr(), cap.data_ptr(), out.data_ptr(),
             S, J, z, jt, torch.cuda.current_stream(dev).cuda_stream,
         )
-    _raise_on(err, "bf_relax_step")
+    check_launch(err, "bf_relax_step")
     return out
 
 
-def solve_grouped(adj, init, banned_v, spur_onehot, banned_next, cap):
+def solve_grouped(adj, init, banned_v, spur_onehot, banned_next, cap,
+                  max_iters: int | None = None):
     """Launch ``bf_solve_grouped``: the whole masked grouped fixed point
     plus parents in one kernel.
 
     adj [S,z,z] f32, init [S,J,z] f32, banned_v/spur_onehot/banned_next
     [S,J,z] bool, cap [S,J] f32 → (dist [S,J,z] f32, parents [S,J,z]
     int32, iters [S, ceil(J/jt)] int32: the relaxations each block ran,
-    at most z, the reference's iteration cap)."""
+    at most ``max_iters``, default z, the reference's iteration cap)."""
     S, z, _ = adj.shape
     J = init.shape[1]
     dev = adj.device
-    _check("adj", adj, torch.float32, (S, z, z), dev)
-    _check("init", init, torch.float32, (S, J, z), dev)
+    check_tensor("adj", adj, torch.float32, (S, z, z), dev)
+    check_tensor("init", init, torch.float32, (S, J, z), dev)
     for name, m in (("banned_v", banned_v), ("spur_onehot", spur_onehot),
                     ("banned_next", banned_next)):
-        _check(name, m, torch.bool, (S, J, z), dev)
-    _check("cap", cap, torch.float32, (S, J), dev)
+        check_tensor(name, m, torch.bool, (S, J, z), dev)
+    check_tensor("cap", cap, torch.float32, (S, J), dev)
     jt = tile_width(J, z, solve_smem)
     dist = torch.empty_like(init)
     parent = torch.empty((S, J, z), dtype=torch.int32, device=dev)
@@ -139,7 +117,8 @@ def solve_grouped(adj, init, banned_v, spur_onehot, banned_next, cap):
             adj.data_ptr(), init.data_ptr(), banned_v.data_ptr(),
             spur_onehot.data_ptr(), banned_next.data_ptr(), cap.data_ptr(),
             dist.data_ptr(), parent.data_ptr(), iters.data_ptr(),
-            S, J, z, z, jt, torch.cuda.current_stream(dev).cuda_stream,
+            S, J, z, z if max_iters is None else int(max_iters), jt,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
-    _raise_on(err, "bf_solve_grouped")
+    check_launch(err, "bf_solve_grouped")
     return dist, parent, iters

@@ -1,0 +1,90 @@
+"""Launchers of the Hopper kernels in ``csrc/ktrop.cu``.
+
+The port of the Pallas TPU kernel ``ktrop_relax`` (``repro/kernels/
+ktrop.py``) and of the fixed point ``engine.dense.ktrop_solve`` iterates
+around it.  Built and called like ``kernels/bf_relax.py``: each launcher
+checks device, dtype, shape and contiguity, allocates with
+``torch.empty``, launches on PyTorch's current stream without
+synchronising, and raises if the launch was refused.  The public,
+counted wrappers are in :mod:`repro_torch.kernels.ops`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ._build import SMEM_LIMIT, check_launch, check_tensor, library
+
+K_MAX = 16  # levels a thread keeps in registers (the TPU kernel's own plan)
+
+
+def solve_smem(k: int, z: int) -> int:
+    """Shared-memory bytes of one ``ktrop_solve`` block: D double-buffered
+    as two [z][k] f32 tiles (mirrors the CUDA source)."""
+    return 2 * k * z * 4
+
+
+def _check_k(k: int) -> None:
+    if not 1 <= k <= K_MAX:
+        raise ValueError(f"the ktrop kernels take 1 <= k <= {K_MAX}, got {k}")
+
+
+@functools.cache
+def _lib():
+    lib = library("ktrop")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.ktrop_relax_step.argtypes = [P] * 3 + [I] * 3 + [P]
+    lib.ktrop_relax_step.restype = I
+    lib.ktrop_solve.argtypes = [P] * 4 + [I] * 4 + [P]
+    lib.ktrop_solve.restype = I
+    return lib
+
+
+def relax_step(D, adj):
+    """Launch ``ktrop_relax_step``: one k-distinct relaxation, the Pallas
+    ``ktrop_relax`` contract at any z.  D [S,k,z] f32 ascending along k,
+    adj [S,z,z] f32 → [S,k,z] f32."""
+    S, k, z = D.shape
+    dev = D.device
+    _check_k(k)
+    check_tensor("D", D, torch.float32, (S, k, z), dev)
+    check_tensor("adj", adj, torch.float32, (S, z, z), dev)
+    out = torch.empty_like(D)
+    if S == 0 or z == 0:
+        return out
+    with torch.cuda.device(dev):
+        err = _lib().ktrop_relax_step(
+            D.data_ptr(), adj.data_ptr(), out.data_ptr(), S, k, z,
+            torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(err, "ktrop_relax_step")
+    return out
+
+
+def solve(adj, src, k: int, max_iters: int | None = None):
+    """Launch ``ktrop_solve``: the k-distinct fixed point from ``src`` in
+    one kernel.  adj [S,z,z] f32, src [S] int32 (each in [0, z)) →
+    (D [S,k,z] f32, iters [S] int32: the relaxations each row ran, at
+    most ``max_iters``, default z·k+8 as in the reference)."""
+    S, z, _ = adj.shape
+    dev = adj.device
+    _check_k(k)
+    if solve_smem(k, z) > SMEM_LIMIT:
+        raise ValueError(f"ktrop_solve keeps D in shared memory: k={k}, "
+                         f"z={z} needs {solve_smem(k, z)} bytes, more than "
+                         f"a block has ({SMEM_LIMIT})")
+    check_tensor("adj", adj, torch.float32, (S, z, z), dev)
+    check_tensor("src", src, torch.int32, (S,), dev)
+    max_iters = z * k + 8 if max_iters is None else int(max_iters)
+    D = torch.empty((S, k, z), dtype=torch.float32, device=dev)
+    iters = torch.empty((S,), dtype=torch.int32, device=dev)
+    if S == 0 or z == 0:
+        return D, iters
+    with torch.cuda.device(dev):
+        err = _lib().ktrop_solve(
+            adj.data_ptr(), src.data_ptr(), D.data_ptr(), iters.data_ptr(),
+            S, k, z, max_iters, torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(err, "ktrop_solve")
+    return D, iters

@@ -45,7 +45,7 @@ def test_import_leaves_jax_and_reference_unloaded():
     code = (
         "import sys\n"
         "import repro_torch.service, repro_torch.convert, "
-        "repro_torch.kernels.ops\n"
+        "repro_torch.kernels.ops, repro_torch.configs.registry\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') or "
         "m.startswith(('jax.', 'repro.')))\n"
         "print(bad)\n"
@@ -55,6 +55,28 @@ def test_import_leaves_jax_and_reference_unloaded():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_index_wrappers_on_cpu_count_no_launches():
+    """On CPU tensors the index wrappers run their plain versions and
+    never touch the launch counters."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launches()
+    adj = torch.full((1, 8, 8), ops.INF)
+    adj[0, torch.arange(8), torch.arange(8)] = 0.0
+    adj[0, torch.arange(7), torch.arange(1, 8)] = 1.0
+    D = ops.ktrop_solve(adj, torch.zeros(1, dtype=torch.int32), 2)
+    ops.ktrop_relax_step(D, adj)
+    w = torch.tensor([[1.0, 2.0, ops.INF]])
+    n = torch.tensor([[2.0, 1.0, 0.0]])
+    cb = torch.tensor([[0.0, 2.0, 3.0]])
+    bd = ops.bound_dist(w, n, cb, torch.zeros(2, dtype=torch.int32),
+                        torch.tensor([1.0, 3.0]))
+    ops.bound_dist_blocked(w, n, cb, torch.zeros(1, dtype=torch.int32),
+                           torch.tensor([1.0, 3.0]))
+    assert D[0, 0].tolist() == list(range(8)) and bd.tolist() == [1.0, 4.0]
+    assert set(ops.LAUNCHES.values()) == {0}
 
 
 def test_device_defaults_to_the_card():

@@ -149,4 +149,6 @@ class TestCudaLaunchers:
         dist, adj, spur, ban, cap = _t(*_step_inputs(1, 1, 2, 32))
         ops.bf_relax_step(dist, adj, spur, ban, cap)
         ops.bf_solve_grouped(adj, dist, spur, spur, ban, cap)
-        assert ops.LAUNCHES == {"bf_relax_step": 0, "bf_solve_grouped": 0}
+        assert ops.LAUNCHES == {"bf_relax_step": 0, "bf_solve_grouped": 0,
+                                "ktrop_relax_step": 0, "ktrop_solve": 0,
+                                "bound_dist": 0}
