@@ -10,12 +10,18 @@ phase that does not hold:
 2. build: compiles every CUDA source of ``src/repro_torch/csrc`` with
    nvcc (one process per source, all at once) and prints ptxas' report;
 3. kernels at ragged shapes: ``bf_relax_step`` and ``bf_solve_grouped``
-   against their plain PyTorch versions on the same inputs, bitwise;
+   against their plain PyTorch versions on the same inputs, bitwise, at
+   densities 30% and 2%, finite caps and cap = INF; the fused solve's
+   per-block report of which loop it ran (its in-edge list, or the dense
+   loop where a column is over the list's budget) must be what the data
+   dictates, and both loops must have run;
 4. the fused solve at the refine_dense shape (S=8192 slab rows, z=256,
    J=32) on road-like adjacency with Yen-style masks and finite caps:
    both kernels against their plain versions on every row, bitwise, and
-   timed with CUDA events beside their bounds; the refine_dense cell's
-   step (capped at 64 iterations) gives the same bytes;
+   timed with CUDA events beside their bounds, every block on its list;
+   the refine_dense cell's step (capped at 64 iterations) gives the same
+   bytes; then the fused solve at the serving slab shape (S=64, z=96,
+   J in {8, 32}), bitwise and timed;
 5. serving: ``KSPService(engine="cuda_bf", device="cuda")`` answers 32
    queries (trips of 8-16 hops), one UpdateBatch, and 32 more on a
    64x64 road grid; the same trace on the port's plain ``dense_bf``
@@ -24,14 +30,16 @@ phase that does not hold:
    ``bf_solve_grouped``;
 6. index kernels at ragged shapes: ``ktrop_relax_step`` and
    ``ktrop_solve`` bitwise against their plain versions at z in
-   {1, 96, 200, 256} and k in {1, 2, 10, 16}; ``bound_dist`` and
+   {1, 96, 200, 256}, densities 30% and 2%, k in {1, 2, 10, 16}, and
+   ``ktrop_solve`` at z=1000 (over the list's budget, dense loop), with
+   its loop report checked as in 3; ``bound_dist`` and
    ``bound_dist_blocked`` against ``bound_dist_ref`` (rtol 2e-5) at E in
    {1, 37, 2048} with a ragged B;
 7. the kspdg ``levels`` cell (S=8192, z=256, k=10, 48 iterations) on
    road-like subgraphs with integer vfrag weights, through the cell's own
    step: the step kernel bitwise against the plain step on every row,
    the fused solve (D and per-row iterations) bitwise against the plain
-   solve on every row;
+   solve on every row, every row on its list;
 8. the kspdg ``maintain`` cell (S=122,880, E=2,048, B=4,000,000) through
    the cell's own step (profile sort + ``bound_dist``), against the plain
    ``dense.bound_dist_batch`` (rtol 1e-4, atol 1e-3) and against
@@ -115,13 +123,14 @@ def max_abs_err(torch, got, want) -> float:
 # ---------------------------------------------------------------------------
 # inputs
 # ---------------------------------------------------------------------------
-def ragged_inputs(np, rng, S, J, z, one_hot):
-    """Slab, mid-relaxation distances and masks (general or Yen-style),
-    finite caps, and an all-INF padding problem."""
+def ragged_inputs(np, rng, S, J, z, one_hot, density=0.3, cap_inf=False):
+    """Slab at ``density`` (finite entries), mid-relaxation distances and
+    masks (general or Yen-style), finite caps or INF (the default of
+    ``ops.bf_relax_step``), and an all-INF padding problem."""
     from repro_torch.kernels.ref import INF
 
     adj = rng.uniform(1.0, 50.0, (S, z, z)).astype(np.float32)
-    adj[rng.random((S, z, z)) > 0.3] = INF
+    adj[rng.random((S, z, z)) > density] = INF
     for s in range(S):
         np.fill_diagonal(adj[s], 0.0)
     init = np.full((S, J, z), INF, np.float32)
@@ -139,26 +148,30 @@ def ragged_inputs(np, rng, S, J, z, one_hot):
     bv = (rng.random((S, J, z)) < 0.05) & ~so
     bn = rng.random((S, J, z)) < 0.1
     cap = rng.uniform(20.0, 80.0, (S, J)).astype(np.float32)
+    if cap_inf:
+        cap[:] = INF
     init[:, J - 1, :] = INF  # a padding problem must no-op
     so[:, J - 1, :] = False
     return adj, init, bv, so, bn, cap
 
 
 def road_inputs(torch, S, J, z, device):
-    """refine_dense-sized solve inputs made on the card from a seed: each
-    slab row a 16x16 road grid (2-4 neighbours per vertex, integer weights
-    1-100, 0 diagonal); each problem a Yen spur search with a one-hot spur
-    (its source), banned root-path vertices, banned next hops and a
-    finite cap."""
+    """Solve inputs made on the card from a seed: each slab row a road
+    grid of z vertices (16x16 at the refine_dense z=256, 8x12 at the
+    serving z=96; 2-4 neighbours per vertex, integer weights 1-100, 0
+    diagonal); each problem a Yen spur search with a one-hot spur (its
+    source), banned root-path vertices, banned next hops and a finite
+    cap."""
     from repro_torch.kernels.ref import INF
 
     gen = torch.Generator(device=device).manual_seed(SEED)
-    side = int(round(z ** 0.5))
+    rows = max(d for d in range(1, int(z ** 0.5) + 1) if z % d == 0)
+    cols = z // rows
     v = torch.arange(z, device=device)
-    r, c = v // side, v % side
-    right, down = v[c < side - 1], v[r < side - 1]
+    r, c = v // cols, v % cols
+    right, down = v[c < cols - 1], v[r < rows - 1]
     eu = torch.cat([right, down])
-    ev = torch.cat([right + 1, down + side])
+    ev = torch.cat([right + 1, down + cols])
     w = torch.randint(1, 101, (S, eu.numel()), generator=gen,
                       device=device).float()
     adj = torch.full((S, z, z), INF, device=device)
@@ -172,6 +185,28 @@ def road_inputs(torch, S, J, z, device):
     bn = torch.rand((S, J, z), generator=gen, device=device) < 0.02
     cap = 400.0 + 1600.0 * torch.rand((S, J), generator=gen, device=device)
     return adj, init.contiguous(), bv, so.contiguous(), bn, cap
+
+
+def list_expected(torch, adj, slots):
+    """Per slab row, whether the fused solves can run from their in-edge
+    list: every column of the row has at most ``slots`` finite entries."""
+    from repro_torch.kernels.ref import INF
+
+    return (adj < INF).sum(dim=1).amax(dim=1) <= slots if slots else \
+        torch.zeros(adj.shape[0], dtype=torch.bool, device=adj.device)
+
+
+def bf_solve_ops(torch, adj, iters, J, jt):
+    """Operations the fused BF solve needs on this data: 2·jn·nnz(adj[s])
+    add+min per block and iteration (jn problems of the block), plus the
+    same once for the parent epilogue."""
+    from repro_torch.kernels.ref import INF
+
+    nnz = (adj < INF).sum(dim=(1, 2)).double()
+    jn = torch.tensor([min(jt, J - t) for t in range(0, J, jt)],
+                      dtype=torch.float64, device=adj.device)
+    return float((2.0 * nnz[:, None] * jn[None, :]
+                  * (iters.double() + 1.0)).sum())
 
 
 # ---------------------------------------------------------------------------
@@ -192,35 +227,77 @@ def phase_build():
         log(f"[build] {name}: {len(regs)} kernel instantiations, "
             f"{min(regs)}-{max(regs)} registers per thread, at most "
             f"{max(spills)} bytes of spill stores (ptxas -v)")
+    # registers of each fused solve's instantiation (template argument)
+    for name, kernel in (("bf_relax", "bf_solve_grouped_kernel"),
+                         ("ktrop", "ktrop_solve_kernel")):
+        per = {}
+        entry = None
+        ptxas = _build.BUILD_INFO.get(name, {}).get("log", "")
+        for line in ptxas.splitlines():
+            m = re.search(r"entry function '(\S+)'", line)
+            if m:
+                t = re.search(kernel + r"ILi(\d+)E", m.group(1))
+                entry = int(t.group(1)) if t else None
+            m = re.search(r"Used (\d+) registers", line)
+            if m and entry is not None:
+                per[entry] = int(m.group(1))
+                entry = None
+        log(f"[build] {kernel} registers per thread by template argument "
+            f"(ptxas -v): {dict(sorted(per.items()))}")
 
 
 def phase_ragged(torch, np, dev):
     from repro_torch.engine import dense
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import _build, bf_relax, ops, ref
 
     rng = np.random.default_rng(SEED)
     shapes = [(3, 1, 96), (2, 3, 200), (4, 8, 128), (2, 40, 33),
               (1, 5, 1000), (5, 32, 256)]
+    # (one-hot spurs, density, cap = INF): 30% rows run the dense loop
+    # (except at z=33), 2% rows the in-edge list
+    variants = [(False, 0.3, False), (True, 0.3, False), (True, 0.3, True),
+                (True, 0.02, False), (False, 0.02, True)]
+    loops = {"list": 0, "dense": 0}
     for S, J, z in shapes:
-        for one_hot in (False, True):
-            args = [torch.from_numpy(a).to(dev) for a in
-                    ragged_inputs(np, rng, S, J, z, one_hot)]
+        jt = bf_relax.tile_width(J, z, bf_relax.solve_smem)
+        slots = _build.edge_list_slots(bf_relax.tile_smem(jt, z), z)
+        for one_hot, density, cap_inf in variants:
+            args = [torch.from_numpy(a).to(dev) for a in ragged_inputs(
+                np, rng, S, J, z, one_hot, density, cap_inf)]
             adj, init, bv, so, bn, cap = args
+            what = (S, J, z, one_hot, density, cap_inf)
             got = ops.bf_relax_step(init, adj, so, bn, cap)
             want = ref.bf_relax_ref(init, adj, so, bn, cap)
-            check(torch.equal(got, want), ("bf_relax_step", S, J, z))
+            check(torch.equal(got, want), ("bf_relax_step", what))
             d, p = ops.bf_solve_grouped(*args)
-            wd, wp = ref.bf_solve_grouped_ref(*args)
+            wd, wp, wit = ref.bf_solve_grouped_ref(*args, with_iters=True)
             check(torch.equal(d, wd) and torch.equal(p, wp),
-                  ("bf_solve_grouped", S, J, z, one_hot))
-            if one_hot:  # the dense engine's formulation agrees too
+                  ("bf_solve_grouped", what))
+            ld, lp, lit, used = bf_relax.solve_grouped(*args)
+            check(torch.equal(ld, d) and torch.equal(lp, p)
+                  and torch.equal(lit.amax(dim=1), wit),
+                  ("bf_solve_grouped iterations per row", what))
+            check(torch.equal(used.bool(), list_expected(torch, adj, slots)
+                              [:, None].expand_as(used)),
+                  ("bf_solve_grouped loop report", what))
+            if z == 1000 and density == 0.3:
+                check(not used.any(), "z=1000 at 30% ran the in-edge list")
+            n_list = int(used.sum())
+            loops["list"] += n_list
+            loops["dense"] += used.numel() - n_list
+            if one_hot and density == 0.3:  # the dense engine's formulation
                 dd, _ = dense.bf_solve_grouped(adj, init, bv, so, bn, cap=cap)
-                check(torch.equal(d, dd), ("dense dist", S, J, z))
+                check(torch.equal(d, dd), ("dense dist", what))
                 dp = dense.bf_parents_grouped(adj, dd, so, bn)
-                check(torch.equal(p, dp), ("dense parents", S, J, z))
+                check(torch.equal(p, dp), ("dense parents", what))
     torch.cuda.synchronize()
-    log(f"[ragged] bf_relax_step and bf_solve_grouped bitwise equal to plain "
-        f"at (S,J,z) in {shapes}, general and one-hot masks")
+    check(loops["list"] > 0 and loops["dense"] > 0,
+          ("both loops of bf_solve_grouped ran", loops))
+    log(f"[ragged] bf_relax_step and bf_solve_grouped (dist, parents and "
+        f"iterations per row) bitwise equal to plain at (S,J,z) in {shapes}, "
+        f"general and one-hot masks, densities 30% and 2%, finite caps and "
+        f"cap = INF; blocks by loop {loops}, each as the data dictates "
+        f"(every column within the list's slots), z=1000 at 30% all dense")
 
 
 def phase_refine_dense(torch, dev, cell):
@@ -256,7 +333,10 @@ def phase_refine_dense(torch, dev, cell):
         f"({step_by}), bitwise equal on all {S} rows")
 
     # --- the fused fixed point with parents (bf_solve_grouped)
-    dist, parent, iters = bf_relax.solve_grouped(adj, init, bv, so, bn, cap)
+    dist, parent, iters, used = bf_relax.solve_grouped(adj, init, bv, so, bn,
+                                                       cap)
+    check(bool(used.all()), ("refine_dense blocks ran the dense loop",
+                             int(used.numel() - used.sum())))
     solve_ms = cuda_ms(
         torch, lambda: ops.bf_solve_grouped(adj, init, bv, so, bn, cap),
         repeats=5)
@@ -286,15 +366,25 @@ def phase_refine_dense(torch, dev, cell):
     check(torch.equal(dd, dist[sub]) and torch.equal(dp, parent[sub]),
           "the dense engine's solve differs on the checked rows")
     it = iters.double()
-    relax_pairs = float(iters.long().sum()) * J * z * z  # this run's work
+    # this run's work: the kept (u, v) pairs of each row, per problem,
+    # iteration and the parent epilogue
+    jt = bf_relax.tile_width(J, z, bf_relax.solve_smem)
+    smem = bf_relax.solve_smem(jt, z)
+    # the fixed cost: tile loads, the one read of the row, the epilogue
+    fixed_ms = cuda_ms(torch, lambda: bf_relax.solve_grouped(
+        adj, init, bv, so, bn, cap, max_iters=0), repeats=5)
     solve_bound, solve_by = bound_ms(
         adj_bytes + n * 4 * 3 + n * 3 + S * J * 4,
-        2.0 * relax_pairs + 2.0 * S * J * z * z)
+        bf_solve_ops(torch, adj, iters, J, jt))
     reached = (dist < ref.INF / 2).double().mean()
     log(f"[refine_dense] bf_solve_grouped: {solve_ms:.3f} ms (median of 5), "
         f"plain {solve_plain_ms:.1f} ms, bound {solve_bound:.3f} ms "
         f"({solve_by}); iterations per block max {int(it.max())} mean "
         f"{float(it.mean()):.2f}; reached share {float(reached):.3f}; "
+        f"in-edge list on {int(used.sum())} of {used.numel()} blocks "
+        f"({smem} B of shared memory per block, "
+        f"{bf_relax.solve_blocks_per_sm(J, z)} blocks per SM); with "
+        f"max_iters=0 (loads, list build, epilogue) {fixed_ms:.3f} ms; "
         f"dist, parents and iterations per row bitwise equal to plain on "
         f"all {S} rows, and to the refine_dense cell's step")
     return {
@@ -303,8 +393,35 @@ def phase_refine_dense(torch, dev, cell):
                               max_abs_err=step_err),
         "bf_solve_grouped": dict(ms=solve_ms, plain_ms=solve_plain_ms,
                                  bound_ms=solve_bound, bound_by=solve_by,
-                                 max_abs_err=max_abs_err(torch, dist, want_d)),
+                                 max_abs_err=max_abs_err(torch, dist, want_d),
+                                 list_blocks=int(used.sum()),
+                                 dense_blocks=int(used.numel() - used.sum())),
     }
+
+
+def phase_serving_shape(torch, dev):
+    """``bf_solve_grouped`` at the serving slab shape (S=64 rows, z=96) on
+    road-like rows, J in {8, 32}: bitwise against the plain version and
+    timed (median of 21 CUDA-event timings of one launch)."""
+    from repro_torch.kernels import bf_relax, ops, ref
+
+    times = {}
+    for J in (8, 32):
+        args = road_inputs(torch, 64, J, 96, dev)
+        d, p, it, used = bf_relax.solve_grouped(*args)
+        wd, wp, wit = ref.bf_solve_grouped_ref(*args, with_iters=True)
+        check(torch.equal(d, wd) and torch.equal(p, wp)
+              and torch.equal(it.amax(dim=1), wit),
+              ("bf_solve_grouped at the serving shape", J))
+        check(bool(used.all()), ("serving-shape blocks ran the dense loop", J))
+        ms = cuda_ms(torch, lambda: ops.bf_solve_grouped(*args), repeats=21)
+        times[f"S64_J{J}_z96"] = ms
+        log(f"[serving-shape] bf_solve_grouped S=64 J={J} z=96: {ms:.4f} ms "
+            f"(median of 21), {bf_relax.solve_blocks_per_sm(J, 96)} blocks "
+            f"per SM, iterations per block max {int(it.max())}, "
+            f"in-edge list on all {used.numel()} blocks, bitwise equal to "
+            f"plain")
+    return times
 
 
 def local_trips(np, g, n, rng, lo=8, hi=16):
@@ -416,26 +533,44 @@ def phase_serving(torch, np):
 
 
 def phase_ragged_index(torch, np, dev):
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import _build, ktrop, ops, ref
 
     rng = np.random.default_rng(SEED)
-    for z in (1, 96, 200, 256):
+    loops = {"list": 0, "dense": 0}
+    # (z, density, k values): 30% rows run the dense loop (z > 1), 2% rows
+    # the in-edge list; z=1000 at 30% (about 300 entries per column) is
+    # over any list budget
+    cases = [(z, density, (1, 2, 10, 16)) for z in (1, 96, 200, 256)
+             for density in (0.3, 0.02)] + [(1000, 0.3, (10,))]
+    for z, density, ks in cases:
         S = 3
         adj = rng.integers(1, 9, (S, z, z)).astype(np.float32)
-        adj[rng.random((S, z, z)) > 0.3] = ref.INF
+        adj[rng.random((S, z, z)) > density] = ref.INF
         for s in range(S):
             np.fill_diagonal(adj[s], 0.0)
         adj = torch.from_numpy(adj).to(dev)
         src = torch.from_numpy(rng.integers(0, z, S).astype(np.int32)).to(dev)
-        for k in (1, 2, 10, 16):
+        for k in ks:
             want_d, want_it = ref.ktrop_solve_ref(adj, src, k)
             d, it = ops.ktrop_solve(adj, src, k, with_iters=True)
             check(torch.equal(d, want_d) and torch.equal(it, want_it),
-                  ("ktrop_solve", z, k))
+                  ("ktrop_solve", z, density, k))
+            ld, lit, used = ktrop.solve(adj, src, k)
+            slots = _build.edge_list_slots(2 * k * z * 4, z)
+            check(torch.equal(ld, d) and torch.equal(lit, it)
+                  and torch.equal(used.bool(),
+                                  list_expected(torch, adj, slots)),
+                  ("ktrop_solve loop report", z, density, k))
+            if z == 1000:
+                check(not used.any(), "z=1000 at 30% ran the in-edge list")
+            loops["list"] += int(used.sum())
+            loops["dense"] += used.numel() - int(used.sum())
             d3, it3 = ops.ktrop_solve(adj, src, k, 3, with_iters=True)  # cap
             w3, wit3 = ref.ktrop_solve_ref(adj, src, k, 3)
             check(torch.equal(d3, w3) and torch.equal(it3, wit3),
-                  ("ktrop_solve max_iters=3", z, k))
+                  ("ktrop_solve max_iters=3", z, density, k))
+            if z == 1000:
+                continue
             D = w3  # a mid-relaxation state, ascending along k
             for _ in range(2):
                 got = ops.ktrop_relax_step(D, adj)
@@ -443,6 +578,8 @@ def phase_ragged_index(torch, np, dev):
                 check(torch.equal(got, want), ("ktrop_relax_step", z, k))
                 check(not torch.isinf(got).any(), ("+inf in ktrop", z, k))
                 D = want
+    check(loops["list"] > 0 and loops["dense"] > 0,
+          ("both loops of ktrop_solve ran", loops))
     for E in (1, 37, 2048):
         S, B = 5, 1000  # ragged: not a multiple of the TPU's 256
         w = np.sort(rng.uniform(0.1, 5.0, (S, E)).astype(np.float32), -1)
@@ -468,9 +605,12 @@ def phase_ragged_index(torch, np, dev):
             want = ref.bound_dist_ref(w, n, cb, sub_q, phi)
             torch.testing.assert_close(got, want, rtol=2e-5, atol=0.0)
     torch.cuda.synchronize()
-    log("[ragged-index] ktrop_relax_step and ktrop_solve (to the fixed "
-        "point and capped at 3) bitwise equal to plain at z in "
-        "{1, 96, 200, 256}, k in {1, 2, 10, 16}; bound_dist and "
+    log("[ragged-index] ktrop_relax_step and ktrop_solve (D and iterations "
+        "per row, to the fixed point and capped at 3) bitwise equal to "
+        "plain at z in {1, 96, 200, 256}, densities 30% and 2%, k in "
+        "{1, 2, 10, 16}, and ktrop_solve at z=1000, 30%, k=10; rows by "
+        f"loop {loops}, each as the data dictates, z=1000 all dense; "
+        "bound_dist and "
         "bound_dist_blocked within rtol 2e-5 of bound_dist_ref at E in "
         "{1, 37, 2048}, B=1000")
 
@@ -487,7 +627,7 @@ def timed(torch, fn):
 
 
 def phase_levels(torch, dev, cell):
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ktrop, ops, ref
 
     step = cell.step_fn
     (S, z, _), _ = (spec.shape for spec in cell.arg_specs)
@@ -509,9 +649,12 @@ def phase_levels(torch, dev, cell):
     check(tuple(D.shape) == (S, k, z), "levels output shape")
 
     # --- the fused solve: iterations, time, the plain fixed point
-    D2, iters = ops.ktrop_solve(adj, src, k, iters_cap, with_iters=True)
+    D2, iters, used = ktrop.solve(adj, src, k, iters_cap)
     check(torch.equal(D, D2), "levels: the step and the launcher differ")
+    check(bool(used.all()), ("levels rows ran the dense loop",
+                             int(used.numel() - used.sum())))
     solve_ms = cuda_ms(torch, lambda: step(adj, src), repeats=5)
+    fixed_ms = cuda_ms(torch, lambda: ktrop.solve(adj, src, k, 0), repeats=5)
     (want_d, want_it), solve_plain_ms = timed(torch, lambda: chunked(
         torch, lambda a, s: ref.ktrop_solve_ref(a, s, k, iters_cap), S,
         adj, src))
@@ -525,16 +668,22 @@ def phase_levels(torch, dev, cell):
     # no edge costs one add and one compare (the early exit), an edge at
     # most k of each
     nnz = (adj < ref.INF).sum(dim=(1, 2)).double()
-    row_ops = 2.0 * (z * z + k * nnz)
-    solve_bound, solve_by = bound_ms(adj_bytes + S * 4 + n_d * 4 + S * 4,
-                                     float((row_ops * iters.double()).sum()))
+    row_ops = 2.0 * (z * z + k * nnz)  # the step's dense scan
+    # the solve folds each row's in-edges only: at most k add+compare
+    # pairs per finite entry and relaxation
+    solve_bound, solve_by = bound_ms(
+        adj_bytes + S * 4 + n_d * 4 + S * 4,
+        float((2.0 * k * nnz * iters.double()).sum()))
     log(f"[levels] ktrop_solve: {solve_ms:.3f} ms (median of 5), plain "
         f"{solve_plain_ms:.1f} ms (in {PLAIN_CHUNK}-row chunks), bound "
         f"{solve_bound:.3f} ms ({solve_by}); iterations per row max "
         f"{int(it.max())} mean {float(it.mean()):.2f} (cap {iters_cap}); "
         f"levels found per vertex mean {float(finite.mean()):.2f}; finite "
         f"adjacency entries per row mean {float(nnz.mean()):.1f} of {z * z}; "
-        f"D and "
+        f"in-edge list on {int(used.sum())} of {S} rows "
+        f"({ktrop.solve_smem(k, z)} B of shared memory per block, "
+        f"{ktrop.solve_blocks_per_sm(k, z)} blocks per SM); with "
+        f"max_iters=0 (D0, list build, store) {fixed_ms:.3f} ms; D and "
         f"iterations bitwise equal to plain on all {S} rows")
 
     # --- one relaxation from a mid-relaxation state (ktrop_relax_step)
@@ -555,7 +704,9 @@ def phase_levels(torch, dev, cell):
                                  max_abs_err=max_abs_err(torch, got, want)),
         "ktrop_solve": dict(ms=solve_ms, plain_ms=solve_plain_ms,
                             bound_ms=solve_bound, bound_by=solve_by,
-                            max_abs_err=max_abs_err(torch, D, want_d)),
+                            max_abs_err=max_abs_err(torch, D, want_d),
+                            list_blocks=int(used.sum()),
+                            dense_blocks=int(used.numel() - used.sum())),
     }
 
 
@@ -690,6 +841,8 @@ def main() -> int:
     cells = {cell.shape: cell for cell in get_arch("kspdg").cells()}
     phase_ragged(torch, np, dev)
     timings = phase_refine_dense(torch, dev, cells["refine_dense"])
+    timings["bf_solve_grouped"]["serving_shape_ms"] = phase_serving_shape(
+        torch, dev)
     launches = phase_serving(torch, np)
     phase_ragged_index(torch, np, dev)
     torch.cuda.empty_cache()

@@ -18,26 +18,41 @@
 //                            the parent epilogue.  The host never waits per
 //                            iteration.
 //
-// Layout.  One block owns slab row s and a tile of JT problems of it
-// (blockIdx.y walks the tiles of J).  The tile's distances live in shared
-// memory as [z][JT] (for one u, the JT values are contiguous and every
-// thread of a warp reads the same address: a broadcast).  Each thread owns
-// output vertices v = tid, tid + blockDim, ... and keeps one f32 accumulator
-// per problem in registers.  The loop over u reads adj[s,u,v] from device
-// memory, coalesced across the warp, once per iteration for all JT problems.
-// Spur and ban masks are packed into 32-bit words (bit j = problem j), so the
-// cut test is one AND per (u, v) and the common uncut case takes a loop with
-// no per-problem test.
+// Layout of the step kernel.  One block owns slab row s and a tile of JT
+// problems of it (blockIdx.y walks the tiles of J).  The tile's distances
+// live in shared memory as [z][JT] (for one u, the JT values are
+// contiguous and every thread of a warp reads the same address: a
+// broadcast).  Each thread owns output vertices v = tid, tid + blockDim, ...
+// and keeps one f32 accumulator per problem in registers.  The loop over u
+// reads adj[s,u,v] from device memory, coalesced across the warp.  Spur and
+// ban masks are packed into 32-bit words (bit j = problem j), so the cut
+// test is one AND per (u, v) and the common uncut case takes a loop with no
+// per-problem test.  One relaxation reads the row once, so it is bound by
+// the bytes of the adjacency.
 //
-// What bounds it.  Min-plus has no tensor-core form: every (s, j, u, v) term
-// is one FADD and one FMNMX on the CUDA cores.  At the refine_dense shape
-// (S=8192, J=32, z=256) one iteration is S*J*z^2 = 17.2e9 add+min pairs
-// against S*z^2*4 B = 2 GiB of adjacency, so the fixed point is bound by
-// operations, not bytes: the JT-wide tile makes each adjacency element feed
-// JT problems.  The adjacency row of one block (256 KiB at z=256) does not fit
-// in shared memory next to the distance tiles; it is streamed from L2/device
-// memory each iteration.  Staging u-tiles of it through TMA, and clusters
-// that share them, are left for a later change.
+// Layout of the fused solve.  The block reads its adjacency row from device
+// memory once and keeps the finite entries as a compact in-edge list in
+// shared memory (in_edges.cuh: about 4.75 entries per vertex on a road
+// subgraph, 1,216 of 65,536 at z=256).  Every iteration of the fixed point
+// and the parent epilogue then run from the list: one add and one min per
+// kept (u, v, j), where a dense scan spends them on all z^2*JT terms and
+// rereads the 256 KiB row from L2/device memory each iteration.  Threads
+// map to (v, j) pairs: a warp's lanes run along j, 32/JT vertices per warp
+// when JT < 32 (serving buckets have J=8), so for one warp-uniform in-edge
+// (u, w) the lanes read d[u][j] and add the same w; the cut is bit j of
+// spur[u] & ban[v], and a vertex with no banned next hop (98% of them)
+// takes a loop without the cut test, two in-edges per step.  The distance
+// tiles are [z][P] with an odd pitch P = JT+1, so both that read and the
+// tile's load and store, which run along v to be coalesced in device
+// memory, are free of bank conflicts.  No per-problem register array is
+// kept; the block runs up to 512 threads, two blocks per SM at the
+// refine_dense shape (64 registers, about 102 KiB of shared memory each).
+// A block whose row has a column over the list's budget runs the same
+// mapping over every u, reading adj[s,u,v] from device memory (the dense
+// loop).  What bounds it: not the single read of the row (2.15 GB at the
+// refine_dense shape, 0.64 ms at 3.35 TB/s) but instruction issue, about
+// 70 warp instructions per vertex group and iteration for 4.75 in-edges,
+// and the per-iteration block barriers.
 //
 // Exactness.  Only f32 add, min and compare are used, so the order of the
 // u-reduction does not change the result.  INF is the finite 3.0e38: INF+INF
@@ -47,10 +62,17 @@
 // so no contraction changes its rounding.  Stopping each block on its own
 // change test gives the same bytes as the reference's global test: one
 // relaxation of a block that did not decrease returns the same values again
-// (monotone f32 add; values clamped by the cap stay clamped).
+// (monotone f32 add; values clamped by the cap stay clamped).  The fused
+// solve's list skips the entries with adj >= INF; in_edges.cuh gives the
+// argument that this keeps every byte (values, parents, iteration counts)
+// given adj >= 0, init >= 0 and cap <= INF, which every caller meets.
+// Within a column the list is in ascending u, so the parent epilogue's
+// strict < keeps the first index of the min, as the dense scan does.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "in_edges.cuh"
 
 #define BF_INF 3.0e38f
 
@@ -157,22 +179,62 @@ __global__ void bf_relax_step_kernel(const float* __restrict__ dist,
   }
 }
 
+// The fused solve keeps its distance tiles as [z][P] with an odd pitch
+// P (JT + 1, or 1 at JT = 1): the lanes of a warp that read d[u][0..JT)
+// for one u, and those that read d[v][j] for consecutive v (the coalesced
+// tile load and store), all hit distinct banks.
 template <int JT>
-__global__ void bf_solve_grouped_kernel(
+__host__ __device__ constexpr int tile_pitch() { return JT > 1 ? JT + 1 : 1; }
+
+// One term of the fused solve at in-edge e = (u*P, w): d[u][j] + w, or
+// INF where the term is cut (bit j of ban[v], which `banj` holds, and bit
+// j of spur[u]).
+template <int JT>
+__device__ __forceinline__ float solve_term(const float* d,
+                                            const uint32_t* spur_sh, InEdge e,
+                                            int j, bool banj) {
+  constexpr int P = tile_pitch<JT>();
+  return (banj && ((spur_sh[(unsigned)e.at / P] >> j) & 1u))
+             ? BF_INF
+             : __fadd_rn(d[e.at + j], e.w);
+}
+
+// One parent-epilogue candidate at vertex v from source u (its values at
+// d + at): d[u][j] (INF at spur vertices) + w, kept in (best, arg) on a
+// strict < so the first u of the min wins.  The diagonal is no hop.
+__device__ __forceinline__ void parent_term(const float* d_at,
+                                            const uint32_t* spur_sh, int u,
+                                            int v, int j, float w,
+                                            float& best, int& arg) {
+  if (u == v) w = BF_INF;
+  const float c = __fadd_rn(((spur_sh[u] >> j) & 1u) ? BF_INF : d_at[j], w);
+  if (c < best) {
+    best = c;
+    arg = u;
+  }
+}
+
+// At most 512 threads and two blocks per SM: the register cap (64) that
+// keeps 32 warps resident at the refine_dense shape.
+template <int JT>
+__global__ void __launch_bounds__(512, 2) bf_solve_grouped_kernel(
     const float* __restrict__ adj, const float* __restrict__ init,
     const uint8_t* __restrict__ bv, const uint8_t* __restrict__ so,
     const uint8_t* __restrict__ bn, const float* __restrict__ cap,
     float* __restrict__ dist_out, int32_t* __restrict__ parent_out,
-    int32_t* __restrict__ iters_out, int J, int z, int max_iters) {
+    int32_t* __restrict__ iters_out, int32_t* __restrict__ list_out, int J,
+    int z, int max_iters, int slots) {
+  constexpr int P = tile_pitch<JT>();
   extern __shared__ __align__(16) unsigned char smem[];
-  float* d_cur = reinterpret_cast<float*>(smem);  // [z][JT]
-  float* d_nxt = d_cur + z * JT;                  // [z][JT]
-  uint32_t* spur_sh = reinterpret_cast<uint32_t*>(d_nxt + z * JT);  // [z]
-  uint32_t* ban_sh = spur_sh + z;                                   // [z]
-  uint32_t* bv_sh = ban_sh + z;                                     // [z]
-  float* cap_sh = reinterpret_cast<float*>(bv_sh + z);              // [JT]
-  float* dspur_sh = cap_sh + JT;                                    // [JT]
-  int32_t* sidx_sh = reinterpret_cast<int32_t*>(dspur_sh + JT);     // [JT]
+  float* d_cur = reinterpret_cast<float*>(smem);  // [z][P]
+  float* d_nxt = d_cur + z * P;                   // [z][P]
+  uint32_t* spur_sh = reinterpret_cast<uint32_t*>(d_nxt + z * P);  // [z]
+  uint32_t* ban_sh = spur_sh + z;                                  // [z]
+  uint32_t* bv_sh = ban_sh + z;                                    // [z]
+  float* cap_sh = reinterpret_cast<float*>(bv_sh + z);             // [JT]
+  float* dspur_sh = cap_sh + JT;                                   // [JT]
+  int32_t* sidx_sh = reinterpret_cast<int32_t*>(dspur_sh + JT);    // [JT]
+  const InEdgeList list(sidx_sh + JT, z, slots);
 
   const int s = blockIdx.x;
   const int j0 = blockIdx.y * JT;
@@ -180,31 +242,81 @@ __global__ void bf_solve_grouped_kernel(
   const size_t sj = ((size_t)s * J + j0) * z;
   const float* adj_s = adj + (size_t)s * z * z;
 
-  // dist0 = where(banned_v, INF, init)
-  load_tile<JT>(init + sj, so + sj, cap + (size_t)s * J + j0, bv + sj, jn, z,
-                d_cur, spur_sh, cap_sh);
-  for (int v = threadIdx.x; v < z; v += blockDim.x) {
-    ban_sh[v] = pack_bits(bn + sj, jn, z, v);
-    bv_sh[v] = pack_bits(bv + sj, jn, z, v);
-  }
+  // Tiles, coalesced along v: dist0 = where(banned_v, INF, init), padding
+  // problems INF; mask words (bit j = problem j) by all threads
+  for (int v = threadIdx.x; v < z; v += blockDim.x)
+    spur_sh[v] = ban_sh[v] = bv_sh[v] = 0u;
+  for (int j = threadIdx.x; j < JT; j += blockDim.x)
+    cap_sh[j] = j < jn ? cap[(size_t)s * J + j0 + j] : BF_INF;
   __syncthreads();
+  for (int i = threadIdx.x; i < JT * z; i += blockDim.x) {
+    const int j = i / z, v = i - j * z;
+    float d = BF_INF;
+    if (j < jn) {
+      const size_t at = sj + (size_t)j * z + v;
+      const uint32_t bit = 1u << j;
+      if (so[at]) atomicOr(&spur_sh[v], bit);
+      if (bn[at]) atomicOr(&ban_sh[v], bit);
+      if (bv[at]) atomicOr(&bv_sh[v], bit);
+      else d = init[at];
+    }
+    d_cur[v * P + j] = d;
+  }
+  // the one read of the row; its closing barrier also publishes the tiles
+  const bool use_list = build_in_edges(adj_s, z, slots, P, list);
+
+  // lane -> (v, j): lanes along j, 32/JT vertices per warp
+  constexpr int G = 32 / JT;
+  const int lane = threadIdx.x & 31;
+  const int j = lane % JT;
+  const int sub = lane / JT;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const int n_groups = (z + G - 1) / G;
+  const float cap_j = cap_sh[j];
 
   int it = 0;
   while (it < max_iters) {
     int changed = 0;
-    for (int v = threadIdx.x; v < z; v += blockDim.x) {
-      float acc[JT];
-      relax_vertex<JT>(adj_s, d_cur, spur_sh, ban_sh[v], z, v, acc);
-      const uint32_t bvb = bv_sh[v];
-#pragma unroll
-      for (int j = 0; j < JT; ++j) {
-        const float old = d_cur[v * JT + j];
-        float nw = fminf(old, acc[j]);
-        if (nw > cap_sh[j]) nw = BF_INF;   // cap clamp (in the Pallas kernel)
-        if ((bvb >> j) & 1u) nw = BF_INF;  // banned-vertex re-mask
-        d_nxt[v * JT + j] = nw;
-        changed |= (j < jn) && (nw < old);
+    for (int g = warp; g < n_groups; g += n_warps) {
+      const int v = g * G + sub;
+      if (v >= z) continue;
+      const uint32_t banb = ban_sh[v];
+      float acc = pos_inf();
+      if (use_list) {
+        const InEdge* ev = list.e + v;
+        const int n = list.deg[v];
+        if (banb == 0u) {  // no term into v is cut: two in-edges per step
+          int i = 0;
+          for (; i + 2 <= n; i += 2) {
+            const InEdge e0 = ev[i * z], e1 = ev[(i + 1) * z];
+            acc = fminf(acc, fminf(__fadd_rn(d_cur[e0.at + j], e0.w),
+                                   __fadd_rn(d_cur[e1.at + j], e1.w)));
+          }
+          if (i < n) {
+            const InEdge e0 = ev[i * z];
+            acc = fminf(acc, __fadd_rn(d_cur[e0.at + j], e0.w));
+          }
+        } else {
+          const bool banj = (banb >> j) & 1u;
+          for (int i = 0; i < n; ++i)
+            acc = fminf(acc,
+                        solve_term<JT>(d_cur, spur_sh, ev[i * z], j, banj));
+        }
+      } else {
+        const bool banj = (banb >> j) & 1u;
+        for (int u = 0; u < z; ++u)
+          acc = fminf(acc, solve_term<JT>(
+                               d_cur, spur_sh,
+                               InEdge{u * P, __ldg(adj_s + (size_t)u * z + v)},
+                               j, banj));
       }
+      const float old = d_cur[v * P + j];
+      float nw = fminf(old, acc);
+      if (nw > cap_j) nw = BF_INF;            // cap clamp (Pallas kernel's)
+      if ((bv_sh[v] >> j) & 1u) nw = BF_INF;  // banned-vertex re-mask
+      d_nxt[v * P + j] = nw;
+      changed |= (j < jn) && (nw < old);
     }
     ++it;
     const int any = __syncthreads_or(changed);
@@ -216,80 +328,88 @@ __global__ void bf_solve_grouped_kernel(
 
   // parent epilogue: the spur candidate of problem j is its first spur
   // vertex, d_spur its smallest spur distance (bf_parents_grouped)
-  for (int j = threadIdx.x; j < JT; j += blockDim.x) {
+  for (int jj = threadIdx.x; jj < JT; jj += blockDim.x) {
     float ds = BF_INF;
     int first = -1;
     for (int u = 0; u < z; ++u) {
-      if ((spur_sh[u] >> j) & 1u) {
+      if ((spur_sh[u] >> jj) & 1u) {
         if (first < 0) first = u;
-        ds = fminf(ds, d_cur[u * JT + j]);
+        ds = fminf(ds, d_cur[u * P + jj]);
       }
     }
-    dspur_sh[j] = ds;
-    sidx_sh[j] = first;
+    dspur_sh[jj] = ds;
+    sidx_sh[jj] = first;
   }
   __syncthreads();
 
-  for (int v = threadIdx.x; v < z; v += blockDim.x) {
-    float best[JT];
-    int arg[JT];
-#pragma unroll
-    for (int j = 0; j < JT; ++j) {
-      best[j] = pos_inf();
-      arg[j] = 0;
-    }
-    for (int u = 0; u < z; ++u) {
-      const float a = (u == v) ? BF_INF : __ldg(adj_s + (size_t)u * z + v);
-      const float* du = d_cur + u * JT;
-      const uint32_t sp = spur_sh[u];
-#pragma unroll
-      for (int j = 0; j < JT; ++j) {
-        const float c = __fadd_rn(((sp >> j) & 1u) ? BF_INF : du[j], a);
-        if (c < best[j]) {  // strict: the first index of the min wins
-          best[j] = c;
-          arg[j] = u;
-        }
+  int32_t* par_sh = reinterpret_cast<int32_t*>(d_nxt);  // [z][P], free now
+  for (int g = warp; g < n_groups; g += n_warps) {
+    const int v = g * G + sub;
+    if (v >= z || j >= jn) continue;
+    float best = pos_inf();
+    int arg = 0;
+    if (use_list) {  // in ascending u, as the dense scan
+      const int n = list.deg[v];
+      for (int i = 0; i < n; ++i) {
+        const InEdge e = list.e[i * z + v];
+        parent_term(d_cur + e.at, spur_sh, (unsigned)e.at / P, v, j, e.w,
+                    best, arg);
       }
+    } else {
+      for (int u = 0; u < z; ++u)
+        parent_term(d_cur + u * P, spur_sh, u, v, j,
+                    __ldg(adj_s + (size_t)u * z + v), best, arg);
     }
-    const uint32_t banb = ban_sh[v];
-#pragma unroll
-    for (int j = 0; j < JT; ++j) {
-      if (j >= jn) continue;
-      // no spur: the candidate is INF at index 0, as argmax of an all-false
-      // mask gives in the reference
-      const int si = sidx_sh[j];
-      float sp = BF_INF;
-      if (si >= 0 && !((banb >> j) & 1u)) {
-        const float row = (si == v) ? BF_INF : __ldg(adj_s + (size_t)si * z + v);
-        sp = __fadd_rn(dspur_sh[j], row);
-      }
-      float bval = best[j];
-      int bu = arg[j];
-      if (sp < bval) bu = si >= 0 ? si : 0;  // the spur wins only on a strict <
-      bval = fminf(bval, sp);
-      const float d = d_cur[v * JT + j];
-      const bool ok = fabsf(__fsub_rn(bval, d)) <=
-                      __fmul_rn(1e-6f, fmaxf(1.0f, fabsf(d)));
-      const bool reached = d < BF_INF / 2.0f;
-      const bool src = d <= 0.0f;
-      dist_out[sj + (size_t)j * z + v] = d;
-      parent_out[sj + (size_t)j * z + v] = (ok && reached && !src) ? bu : -1;
+    // no spur: the candidate is INF at index 0, as argmax of an all-false
+    // mask gives in the reference
+    const int si = sidx_sh[j];
+    float sp = BF_INF;
+    if (si >= 0 && !((ban_sh[v] >> j) & 1u)) {
+      const float row = (si == v) ? BF_INF : __ldg(adj_s + (size_t)si * z + v);
+      sp = __fadd_rn(dspur_sh[j], row);
     }
+    if (sp < best) arg = si >= 0 ? si : 0;  // the spur wins only on a strict <
+    best = fminf(best, sp);
+    const float d = d_cur[v * P + j];
+    const bool ok = fabsf(__fsub_rn(best, d)) <=
+                    __fmul_rn(1e-6f, fmaxf(1.0f, fabsf(d)));
+    const bool reached = d < BF_INF / 2.0f;
+    const bool src = d <= 0.0f;
+    par_sh[v * P + j] = (ok && reached && !src) ? arg : -1;
   }
-  if (threadIdx.x == 0) iters_out[(size_t)s * gridDim.y + blockIdx.y] = it;
+  __syncthreads();
+  for (int i = threadIdx.x; i < jn * z; i += blockDim.x) {  // coalesced
+    const int jj = i / z, v = i - jj * z;
+    dist_out[sj + i] = d_cur[v * P + jj];
+    parent_out[sj + i] = par_sh[v * P + jj];
+  }
+  if (threadIdx.x == 0) {
+    iters_out[(size_t)s * gridDim.y + blockIdx.y] = it;
+    list_out[(size_t)s * gridDim.y + blockIdx.y] = use_list;
+  }
 }
 
 size_t step_smem(int jt, int z) {
   return (size_t)z * jt * 4 + (size_t)z * 4 + (size_t)jt * 4;
 }
 
-size_t solve_smem(int jt, int z) {
-  return 2 * (size_t)z * jt * 4 + 3 * (size_t)z * 4 + 3 * (size_t)jt * 4;
+size_t solve_smem(int jt, int z, int slots) {
+  const int pitch = jt > 1 ? jt + 1 : 1;  // tile_pitch<JT>()
+  return 2 * (size_t)z * pitch * 4 + 3 * (size_t)z * 4 + 3 * (size_t)jt * 4 +
+         in_edges_smem(z, slots);
 }
 
 int block_threads(int z) {
   const int t = ((z + 31) / 32) * 32;
   return t < 256 ? t : 256;
+}
+
+// The fused solve's threads: one warp per group of 32/JT vertices, at most
+// 16 warps, each taking the same number of groups.
+int solve_threads(int jt, int z) {
+  const int groups = (z + 32 / jt - 1) / (32 / jt);
+  const int per_warp = (groups + 15) / 16;
+  return 32 * ((groups + per_warp - 1) / per_warp);
 }
 
 template <int JT>
@@ -307,19 +427,44 @@ cudaError_t launch_step(const float* dist, const float* adj, const uint8_t* so,
   return cudaGetLastError();
 }
 
+// Opt the fused solve into `smem` bytes per block and the largest
+// shared-memory carveout, so that as many blocks share an SM as fit.
 template <int JT>
-cudaError_t launch_solve(const float* adj, const float* init, const uint8_t* bv,
-                         const uint8_t* so, const uint8_t* bn, const float* cap,
-                         float* dist, int32_t* parent, int32_t* iters, int S,
-                         int J, int z, int max_iters, cudaStream_t stream) {
-  const size_t smem = solve_smem(JT, z);
+cudaError_t set_solve_smem(size_t smem) {
   cudaError_t err = cudaFuncSetAttribute(
       bf_solve_grouped_kernel<JT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(bf_solve_grouped_kernel<JT>,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+template <int JT>
+int solve_blocks_per_sm(int z, int slots) {
+  const size_t smem = solve_smem(JT, z, slots);
+  int blocks = 0;
+  if (set_solve_smem<JT>(smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, bf_solve_grouped_kernel<JT>, solve_threads(JT, z), smem) !=
+          cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+template <int JT>
+cudaError_t launch_solve(const float* adj, const float* init, const uint8_t* bv,
+                         const uint8_t* so, const uint8_t* bn, const float* cap,
+                         float* dist, int32_t* parent, int32_t* iters,
+                         int32_t* list, int S, int J, int z, int max_iters,
+                         int slots, cudaStream_t stream) {
+  const size_t smem = solve_smem(JT, z, slots);
+  cudaError_t err = set_solve_smem<JT>(smem);
+  if (err != cudaSuccess) return err;
   dim3 grid(S, (J + JT - 1) / JT);
-  bf_solve_grouped_kernel<JT><<<grid, block_threads(z), smem, stream>>>(
-      adj, init, bv, so, bn, cap, dist, parent, iters, J, z, max_iters);
+  bf_solve_grouped_kernel<JT><<<grid, solve_threads(JT, z), smem, stream>>>(
+      adj, init, bv, so, bn, cap, dist, parent, iters, list, J, z, max_iters,
+      slots);
   return cudaGetLastError();
 }
 
@@ -355,19 +500,31 @@ int bf_relax_step(const void* dist, const void* adj, const void* so,
 
 // adj [S,z,z] f32; init [S,J,z] f32; bv/so/bn [S,J,z] bool; cap [S,J] f32;
 // outputs dist [S,J,z] f32, parent [S,J,z] int32, iters [S, ceil(J/jt)]
-// int32 (iterations each block ran).
+// int32 (iterations each block ran) and list [S, ceil(J/jt)] int32 (1 where
+// the block ran from its in-edge list, 0 where it ran the dense loop).
+// `slots` is the list's slots per vertex (0: no list).
 int bf_solve_grouped(const void* adj, const void* init, const void* bv,
                      const void* so, const void* bn, const void* cap,
-                     void* dist, void* parent, void* iters, int S, int J,
-                     int z, int max_iters, int jt, void* stream) {
+                     void* dist, void* parent, void* iters, void* list, int S,
+                     int J, int z, int max_iters, int jt, int slots,
+                     void* stream) {
 #define BF_SOLVE(JT_)                                                       \
   (int)launch_solve<JT_>((const float*)adj, (const float*)init,            \
                          (const uint8_t*)bv, (const uint8_t*)so,           \
                          (const uint8_t*)bn, (const float*)cap,            \
                          (float*)dist, (int32_t*)parent, (int32_t*)iters,  \
-                         S, J, z, max_iters, (cudaStream_t)stream)
+                         (int32_t*)list, S, J, z, max_iters, slots,        \
+                         (cudaStream_t)stream)
   BF_DISPATCH_JT(jt, BF_SOLVE)
 #undef BF_SOLVE
+}
+
+// Blocks of bf_solve_grouped that one SM holds at once for this tile
+// width, z and list size (-1 if the query failed).
+int bf_solve_blocks_per_sm(int z, int jt, int slots) {
+#define BF_OCC(JT_) solve_blocks_per_sm<JT_>(z, slots)
+  BF_DISPATCH_JT(jt, BF_OCC)
+#undef BF_OCC
 }
 
 }  // extern "C"

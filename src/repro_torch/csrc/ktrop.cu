@@ -21,40 +21,56 @@
 //
 // Layout.  Each thread owns one column v and keeps the sorted list of the k
 // smallest distinct values seen so far in registers (K is a template
-// parameter, so the list is unrolled).  D[s] is staged in shared memory as
-// [u][K]: for one u every thread of a warp reads the same addresses (a
-// broadcast).  The loop over u reads adj[s,u,v] coalesced across the warp.
-// The step kernel tiles u through 48 KiB of shared memory, so it takes any
-// z; the solve keeps D double-buffered in shared memory (2*K*z*4 bytes,
-// 20 KiB at the levels shape), one block per slab row.
+// parameter, so the list is unrolled).  The step kernel stages D[s] in
+// shared memory as [u][K] tiles through 48 KiB (so it takes any z): for one
+// u every thread of a warp reads the same addresses (a broadcast), and the
+// loop over u reads adj[s,u,v] coalesced across the warp.
 //
-// What bounds it.  One relaxation reads the adjacency once: S*z*z*4 bytes
-// (2.15 GB at S=8192, z=256), 0.64 ms at 3.35 TB/s, against at most
-// S*z*z*k add+compare pairs (5.4e9, 0.16 ms at the f32 rate), and with the
-// early exit below about S*(z*z + k*nnz) on road subgraphs, whose rows hold
-// nnz ~ 2% finite entries: bound by bytes.  The fused solve rereads its 256 KiB adjacency row from L2/device memory every
-// iteration (it does not fit in shared memory beside D), so it moves
-// iterations x 2.15 GB; a compact edge list of the row in shared memory is
-// the next step and is not attempted here.  The TPU kernel's k passes of
+// The fused solve reads its adjacency row from device memory once and keeps
+// the finite entries as a compact in-edge list in shared memory
+// (in_edges.cuh): about 4.75 entries per vertex on a road subgraph instead
+// of z = 256 scanned sources, and one 2.15 GB read at the levels shape
+// instead of iterations x 2.15 GB of rereads.  With the list, neighbouring
+// threads read D at different u, so D is kept double-buffered as [K][z]
+// (2*K*z*4 bytes, 20 KiB at the levels shape): level j of u is word j*z+u,
+// the copy of v's own levels and the final store are consecutive in v, and
+// the list slots are consecutive in v too.  Each vertex's k-list starts as
+// a copy of its own levels, which is what folding them would give: D is
+// distinct and ascending below INF throughout the solve.  A block whose row
+// has a column over the list's budget scans every u of the dense row from
+// device memory instead (the same fold; one add and one compare per
+// non-edge).
+//
+// What bounds it.  The least time is the single read of the adjacency:
+// S*z*z*4 bytes (2.15 GB at S=8192, z=256), 0.64 ms at 3.35 TB/s, against
+// at most S*k*nnz add+compare pairs per iteration on road subgraphs, whose
+// rows hold nnz ~ 2% finite entries.  What the solve spends beyond it is
+// instruction issue in the k-list insertions, each a duplicate test and a
+// shift over K registers, at every iteration.  The TPU kernel's k passes of
 // strict-greater masked minima are not carried over: they do k times the
 // work.  Instead each candidate costs one add and one compare against the
 // list's k-th value; only a smaller candidate is inserted.  Since D[j,u] is
 // ascending in j, the first candidate of u that is not smaller ends the
 // j loop (f32 add is monotone), so a vertex u with no edge into v (adj INF)
-// costs one add and one compare.
+// costs one add and one compare where it is scanned at all.
 //
 // Exactness.  The set of the k smallest distinct values does not depend on
 // the order candidates are visited, and f32 add is the only arithmetic, so
 // the result is bitwise equal to the reference's sort, dedupe, sort: its
 // first k entries are the k smallest distinct values below INF followed by
 // INF (the overflowing +inf can never be among them).  Candidates >= INF
-// are never inserted, and the list starts as INF.  Stopping each row on its
+// are never inserted, and the list starts as INF (the step) or as the own
+// levels, which are such a list already (the solve).  Stopping each row on its
 // own change test gives the global loop's bytes: a relaxation keeps D's own
 // levels, so for a distinct ascending D no value grows, "nothing decreased"
-// means the row maps to itself, and it does so from then on.
+// means the row maps to itself, and it does so from then on.  Skipping the
+// entries with adj >= INF changes nothing: their candidates are >= INF and
+// never inserted (in_edges.cuh).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "in_edges.cuh"
 
 #define KT_INF 3.0e38f
 
@@ -138,38 +154,63 @@ __global__ void ktrop_relax_step_kernel(const float* __restrict__ D,
   }
 }
 
+// Fold the candidates du[j*stride] + a (the levels of one source u) into T.
+template <int K>
+__device__ __forceinline__ void fold_source(float (&T)[K], const float* du,
+                                            int stride, float a) {
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const float c = __fadd_rn(du[j * stride], a);
+    if (!(c < T[K - 1])) break;  // D ascending: the rest of u is no smaller
+    insert_distinct<K>(T, c);
+  }
+}
+
 template <int K>
 __global__ void ktrop_solve_kernel(const float* __restrict__ adj,
                                    const int32_t* __restrict__ src,
                                    float* __restrict__ D_out,
-                                   int32_t* __restrict__ iters_out, int z,
-                                   int max_iters) {
+                                   int32_t* __restrict__ iters_out,
+                                   int32_t* __restrict__ list_out, int z,
+                                   int max_iters, int slots) {
   extern __shared__ __align__(16) float smem[];
-  float* cur = smem;         // [z][K]
-  float* nxt = smem + z * K;  // [z][K]
+  float* cur = smem;          // [K][z]
+  float* nxt = smem + K * z;  // [K][z]
+  const InEdgeList list(nxt + K * z, z, slots);
   const int s = blockIdx.x;
   const float* adj_s = adj + (size_t)s * z * z;
 
   // D0: level 0 is 0 at the source, all else INF
   const int sv = src[s];
   for (int i = threadIdx.x; i < z * K; i += blockDim.x)
-    cur[i] = (sv >= 0 && sv < z && i == sv * K) ? 0.0f : KT_INF;
-  __syncthreads();
+    cur[i] = (sv >= 0 && sv < z && i == sv) ? 0.0f : KT_INF;
+  // the one read of the row; its closing barrier also publishes D0
+  const bool use_list = build_in_edges(adj_s, z, slots, 1, list);
 
   int it = 0;
   while (it < max_iters) {
     int changed = 0;
     for (int v = threadIdx.x; v < z; v += blockDim.x) {
+      // v's own levels are distinct and ascending below INF (D0 and every
+      // relaxation's output are), so folding them into an empty list gives
+      // the levels themselves: the list starts as their copy
       float T[K];
 #pragma unroll
-      for (int i = 0; i < K; ++i) T[i] = KT_INF;
-      const float* dv = cur + v * K;
-      fold_own<K>(T, dv, 1);
-      fold_tile<K>(T, adj_s + v, z, cur, 0, z);
+      for (int j = 0; j < K; ++j) T[j] = cur[j * z + v];
+      if (use_list) {
+        const int n = list.deg[v];
+        for (int i = 0; i < n; ++i) {
+          const InEdge e = list.e[i * z + v];
+          fold_source<K>(T, cur + e.at, z, e.w);
+        }
+      } else {
+        for (int u = 0; u < z; ++u)
+          fold_source<K>(T, cur + u, z, __ldg(adj_s + (size_t)u * z + v));
+      }
 #pragma unroll
       for (int j = 0; j < K; ++j) {
-        nxt[v * K + j] = T[j];
-        changed |= T[j] < dv[j];
+        changed |= T[j] < cur[j * z + v];
+        nxt[j * z + v] = T[j];
       }
     }
     ++it;
@@ -180,11 +221,12 @@ __global__ void ktrop_solve_kernel(const float* __restrict__ adj,
     if (!any) break;
   }
 
-  for (int i = threadIdx.x; i < z * K; i += blockDim.x) {
-    const int j = i / z, v = i % z;  // coalesced store of [K][z]
-    D_out[(size_t)s * K * z + i] = cur[v * K + j];
+  for (int i = threadIdx.x; i < z * K; i += blockDim.x)
+    D_out[(size_t)s * K * z + i] = cur[i];  // [K][z], as D_out
+  if (threadIdx.x == 0) {
+    iters_out[s] = it;
+    list_out[s] = use_list;
   }
-  if (threadIdx.x == 0) iters_out[s] = it;
 }
 
 int block_threads(int z) {
@@ -203,17 +245,44 @@ cudaError_t launch_step(const float* D, const float* adj, float* out, int S,
   return cudaGetLastError();
 }
 
+size_t solve_smem(int k, int z, int slots) {
+  return 2 * (size_t)k * z * 4 + in_edges_smem(z, slots);
+}
+
+// Opt the fused solve into `smem` bytes per block and the largest
+// shared-memory carveout, so that as many blocks share an SM as fit.
 template <int K>
-cudaError_t launch_solve(const float* adj, const int32_t* src, float* D,
-                         int32_t* iters, int S, int z, int max_iters,
-                         cudaStream_t stream) {
-  const size_t smem = 2 * (size_t)K * z * 4;
+cudaError_t set_solve_smem(size_t smem) {
   cudaError_t err = cudaFuncSetAttribute(
       ktrop_solve_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(ktrop_solve_kernel<K>,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+template <int K>
+int solve_blocks_per_sm(int z, int slots) {
+  const size_t smem = solve_smem(K, z, slots);
+  int blocks = 0;
+  if (set_solve_smem<K>(smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, ktrop_solve_kernel<K>, block_threads(z), smem) !=
+          cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+template <int K>
+cudaError_t launch_solve(const float* adj, const int32_t* src, float* D,
+                         int32_t* iters, int32_t* list, int S, int z,
+                         int max_iters, int slots, cudaStream_t stream) {
+  const size_t smem = solve_smem(K, z, slots);
+  cudaError_t err = set_solve_smem<K>(smem);
+  if (err != cudaSuccess) return err;
   ktrop_solve_kernel<K><<<S, block_threads(z), smem, stream>>>(
-      adj, src, D, iters, z, max_iters);
+      adj, src, D, iters, list, z, max_iters, slots);
   return cudaGetLastError();
 }
 
@@ -254,16 +323,27 @@ int ktrop_relax_step(const void* D, const void* adj, void* out, int S, int k,
 #undef KT_STEP
 }
 
-// adj [S,z,z] f32; src [S] int32; outputs D [S,k,z] f32 and iters [S] int32
-// (the relaxations each row ran, at most max_iters).
-int ktrop_solve(const void* adj, const void* src, void* D, void* iters, int S,
-                int k, int z, int max_iters, void* stream) {
+// adj [S,z,z] f32; src [S] int32; outputs D [S,k,z] f32, iters [S] int32
+// (the relaxations each row ran, at most max_iters) and list [S] int32 (1
+// where the row ran from its in-edge list, 0 where it ran the dense loop).
+// `slots` is the list's slots per vertex (0: no list).
+int ktrop_solve(const void* adj, const void* src, void* D, void* iters,
+                void* list, int S, int k, int z, int max_iters, int slots,
+                void* stream) {
 #define KT_SOLVE(K_)                                                      \
   (int)launch_solve<K_>((const float*)adj, (const int32_t*)src, (float*)D, \
-                        (int32_t*)iters, S, z, max_iters,                  \
-                        (cudaStream_t)stream)
+                        (int32_t*)iters, (int32_t*)list, S, z, max_iters,  \
+                        slots, (cudaStream_t)stream)
   KT_DISPATCH_K(k, KT_SOLVE)
 #undef KT_SOLVE
+}
+
+// Blocks of ktrop_solve that one SM holds at once for this k, z and list
+// size (-1 if the query failed).
+int ktrop_solve_blocks_per_sm(int k, int z, int slots) {
+#define KT_OCC(K_) solve_blocks_per_sm<K_>(z, slots)
+  KT_DISPATCH_K(k, KT_OCC)
+#undef KT_OCC
 }
 
 }  // extern "C"

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared
 library with a plain C interface, loaded through :mod:`ctypes`.  No
 PyTorch header is included, so a build takes seconds.  The library's
-file name carries a hash of its source and flags, so a changed source is
-never served a stale build.  Builds go to ``repro_torch/build/`` (listed
+file name carries a hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags, so a changed source or header is never
+served a stale build.  Builds go to ``repro_torch/build/`` (listed
 in ``.gitignore``); :func:`build_all` starts one ``nvcc`` per source, all
 at once.
 
@@ -30,6 +31,11 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 # dynamic shared memory one block may opt into on sm_90 (227 KiB)
 SMEM_LIMIT = 232_448
 
+#: slots per vertex of a fused solve's in-edge list (``csrc/in_edges.cuh``)
+#: where shared memory allows: a road subgraph's in-degree, diagonal
+#: included, stays far below it
+EDGE_SLOTS = 16
+
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -52,9 +58,34 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def edge_list_slots(base_smem: int, z: int) -> int:
+    """Slots per vertex of the in-edge list a fused-solve block keeps in
+    the shared memory left beside its ``base_smem`` bytes: at most
+    :data:`EDGE_SLOTS` (and z), 0 when not one slot fits (every block then
+    runs the dense loop).
+
+    >>> edge_list_slots(71_040, 256), edge_list_slots(230_000, 256)
+    (16, 0)
+    """
+    if z <= 0:
+        return 0
+    room = SMEM_LIMIT - base_smem - 8 - 4 * z  # alignment, degrees
+    return max(0, min(EDGE_SLOTS, z, room // (8 * z)))
+
+
+def edge_list_smem(base_smem: int, z: int) -> int:
+    """Shared-memory bytes of that list (``in_edges_smem`` in the CUDA
+    header): 8 bytes per slot, 4 bytes of degree per vertex and 8 of
+    alignment."""
+    slots = edge_list_slots(base_smem, z)
+    return 8 + 4 * z + 8 * slots * z if slots else 0
 
 
 def build_all() -> dict:

@@ -18,7 +18,9 @@ import functools
 
 import torch
 
-from ._build import SMEM_LIMIT, check_launch, check_tensor, library
+from ._build import (SMEM_LIMIT, check_launch, check_tensor, edge_list_slots,
+                     edge_list_smem, library)
+
 _TILES = (32, 16, 8, 4, 2, 1)
 
 
@@ -28,10 +30,22 @@ def step_smem(jt: int, z: int) -> int:
     return z * jt * 4 + z * 4 + jt * 4
 
 
+def tile_smem(jt: int, z: int) -> int:
+    """Shared-memory bytes of one ``bf_solve_grouped`` block without its
+    in-edge list: two distance tiles (pitch jt + 1, or 1 at jt = 1),
+    spur/ban/banned-vertex words, caps and spur data."""
+    pitch = jt + 1 if jt > 1 else 1
+    return 2 * z * pitch * 4 + 3 * z * 4 + 3 * jt * 4
+
+
 def solve_smem(jt: int, z: int) -> int:
-    """Shared-memory bytes of one ``bf_solve_grouped`` block: two
-    distance tiles, spur/ban/banned-vertex words, caps and spur data."""
-    return 2 * z * jt * 4 + 3 * z * 4 + 3 * jt * 4
+    """Shared-memory bytes of one ``bf_solve_grouped`` block (mirrors the
+    CUDA source): the tiles and the in-edge list, which takes what is left
+    of the block's shared memory, up to ``EDGE_SLOTS`` slots per vertex.
+    It fits whenever the tiles do; a block without room for the list runs
+    the dense loop."""
+    base = tile_smem(jt, z)
+    return base + edge_list_smem(base, z)
 
 
 def tile_width(J: int, z: int, smem) -> int:
@@ -58,9 +72,19 @@ def _lib():
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.bf_relax_step.argtypes = [P] * 6 + [I] * 4 + [P]
     lib.bf_relax_step.restype = I
-    lib.bf_solve_grouped.argtypes = [P] * 9 + [I] * 5 + [P]
+    lib.bf_solve_grouped.argtypes = [P] * 10 + [I] * 6 + [P]
     lib.bf_solve_grouped.restype = I
+    lib.bf_solve_blocks_per_sm.argtypes = [I] * 3
+    lib.bf_solve_blocks_per_sm.restype = I
     return lib
+
+
+def solve_blocks_per_sm(J: int, z: int) -> int:
+    """Blocks of ``bf_solve_grouped`` one SM of the current card holds at
+    once at this J and z (the CUDA occupancy query)."""
+    jt = tile_width(J, z, solve_smem)
+    return _lib().bf_solve_blocks_per_sm(
+        z, jt, edge_list_slots(tile_smem(jt, z), z))
 
 
 def relax_step(dist, adj, spur_onehot, banned_next, cap):
@@ -96,7 +120,11 @@ def solve_grouped(adj, init, banned_v, spur_onehot, banned_next, cap,
     adj [S,z,z] f32, init [S,J,z] f32, banned_v/spur_onehot/banned_next
     [S,J,z] bool, cap [S,J] f32 → (dist [S,J,z] f32, parents [S,J,z]
     int32, iters [S, ceil(J/jt)] int32: the relaxations each block ran,
-    at most ``max_iters``, default z, the reference's iteration cap)."""
+    at most ``max_iters``, default z, the reference's iteration cap;
+    list [S, ceil(J/jt)] int32: 1 where the block ran from its in-edge
+    list, 0 where a column over the list's budget made it run the dense
+    loop).  The kernel skips adjacency entries ≥ INF, which keeps every
+    byte for adj ≥ 0, init ≥ 0 and cap ≤ INF (``csrc/in_edges.cuh``)."""
     S, z, _ = adj.shape
     J = init.shape[1]
     dev = adj.device
@@ -110,15 +138,18 @@ def solve_grouped(adj, init, banned_v, spur_onehot, banned_next, cap,
     dist = torch.empty_like(init)
     parent = torch.empty((S, J, z), dtype=torch.int32, device=dev)
     iters = torch.empty((S, -(-J // jt)), dtype=torch.int32, device=dev)
+    used_list = torch.empty_like(iters)
     if S == 0 or J == 0 or z == 0:
-        return dist, parent, iters
+        return dist, parent, iters, used_list
     with torch.cuda.device(dev):
         err = _lib().bf_solve_grouped(
             adj.data_ptr(), init.data_ptr(), banned_v.data_ptr(),
             spur_onehot.data_ptr(), banned_next.data_ptr(), cap.data_ptr(),
             dist.data_ptr(), parent.data_ptr(), iters.data_ptr(),
-            S, J, z, z if max_iters is None else int(max_iters), jt,
+            used_list.data_ptr(), S, J, z,
+            z if max_iters is None else int(max_iters), jt,
+            edge_list_slots(tile_smem(jt, z), z),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     check_launch(err, "bf_solve_grouped")
-    return dist, parent, iters
+    return dist, parent, iters, used_list

@@ -16,15 +16,19 @@ import functools
 
 import torch
 
-from ._build import SMEM_LIMIT, check_launch, check_tensor, library
+from ._build import (SMEM_LIMIT, check_launch, check_tensor, edge_list_slots,
+                     edge_list_smem, library)
 
 K_MAX = 16  # levels a thread keeps in registers (the TPU kernel's own plan)
 
 
 def solve_smem(k: int, z: int) -> int:
-    """Shared-memory bytes of one ``ktrop_solve`` block: D double-buffered
-    as two [z][k] f32 tiles (mirrors the CUDA source)."""
-    return 2 * k * z * 4
+    """Shared-memory bytes of one ``ktrop_solve`` block (mirrors the CUDA
+    source): D double-buffered as two [k][z] f32 tiles, and the in-edge
+    list in what is left, up to ``EDGE_SLOTS`` slots per vertex (none, and
+    the dense loop, where no slot fits)."""
+    base = 2 * k * z * 4
+    return base + edge_list_smem(base, z)
 
 
 def _check_k(k: int) -> None:
@@ -38,9 +42,19 @@ def _lib():
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.ktrop_relax_step.argtypes = [P] * 3 + [I] * 3 + [P]
     lib.ktrop_relax_step.restype = I
-    lib.ktrop_solve.argtypes = [P] * 4 + [I] * 4 + [P]
+    lib.ktrop_solve.argtypes = [P] * 5 + [I] * 5 + [P]
     lib.ktrop_solve.restype = I
+    lib.ktrop_solve_blocks_per_sm.argtypes = [I] * 3
+    lib.ktrop_solve_blocks_per_sm.restype = I
     return lib
+
+
+def solve_blocks_per_sm(k: int, z: int) -> int:
+    """Blocks of ``ktrop_solve`` one SM of the current card holds at once
+    at this k and z (the CUDA occupancy query)."""
+    _check_k(k)
+    return _lib().ktrop_solve_blocks_per_sm(
+        k, z, edge_list_slots(2 * k * z * 4, z))
 
 
 def relax_step(D, adj):
@@ -67,7 +81,9 @@ def solve(adj, src, k: int, max_iters: int | None = None):
     """Launch ``ktrop_solve``: the k-distinct fixed point from ``src`` in
     one kernel.  adj [S,z,z] f32, src [S] int32 (each in [0, z)) →
     (D [S,k,z] f32, iters [S] int32: the relaxations each row ran, at
-    most ``max_iters``, default z·k+8 as in the reference)."""
+    most ``max_iters``, default z·k+8 as in the reference; list [S]
+    int32: 1 where the row ran from its in-edge list, 0 where a column
+    over the list's budget made it run the dense loop)."""
     S, z, _ = adj.shape
     dev = adj.device
     _check_k(k)
@@ -80,11 +96,14 @@ def solve(adj, src, k: int, max_iters: int | None = None):
     max_iters = z * k + 8 if max_iters is None else int(max_iters)
     D = torch.empty((S, k, z), dtype=torch.float32, device=dev)
     iters = torch.empty((S,), dtype=torch.int32, device=dev)
+    used_list = torch.empty_like(iters)
     if S == 0 or z == 0:
-        return D, iters
+        return D, iters, used_list
     with torch.cuda.device(dev):
         err = _lib().ktrop_solve(
             adj.data_ptr(), src.data_ptr(), D.data_ptr(), iters.data_ptr(),
-            S, k, z, max_iters, torch.cuda.current_stream(dev).cuda_stream)
+            used_list.data_ptr(), S, k, z, max_iters,
+            edge_list_slots(2 * k * z * 4, z),
+            torch.cuda.current_stream(dev).cuda_stream)
     check_launch(err, "ktrop_solve")
-    return D, iters
+    return D, iters, used_list

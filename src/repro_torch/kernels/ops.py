@@ -58,14 +58,23 @@ def bf_solve_grouped(adj, init, banned_v, spur_onehot, banned_next, cap,
     contract, in one kernel launch on the card.  At most ``max_iters``
     (default z) relaxations; ``with_iters`` adds iters [S] int32, the
     relaxations each slab row ran (their maximum is the reference's
-    global count)."""
+    global count).
+
+    The kernel relaxes only each row's finite entries (adj < INF), from
+    a list in shared memory.  That gives the plain version's bytes for
+    adj ≥ 0, init ≥ 0 and cap ≤ INF, which every caller meets (serving
+    caps are ``cand − pre + 1e-9`` or INF): a skipped term is ≥ INF, so
+    it can change a minimum only where the minimum already exceeds INF,
+    and there the cap clamp sends both to INF; in the parent epilogue it
+    can never be the argmin of a reached vertex (``csrc/in_edges.cuh``)."""
     args = (adj.float().contiguous(), init.float().contiguous(),
             banned_v.bool().contiguous(), spur_onehot.bool().contiguous(),
             banned_next.bool().contiguous(), cap.float().contiguous())
     if _on_cpu(init):
         return ref.bf_solve_grouped_ref(*args, max_iters=max_iters,
                                         with_iters=with_iters)
-    dist, parent, iters = bf_relax.solve_grouped(*args, max_iters=max_iters)
+    dist, parent, iters, _ = bf_relax.solve_grouped(*args,
+                                                    max_iters=max_iters)
     LAUNCHES["bf_solve_grouped"] += 1
     if with_iters:  # a row's count is the largest of its blocks'
         return dist, parent, iters.amax(dim=1)
@@ -91,13 +100,18 @@ def ktrop_solve(adj, src, k: int, max_iters: int | None = None,
     card: adj [S,z,z], src int [S] → D [S,k,z] f32 ascending (INF
     padded), after at most ``max_iters`` (default z·k+8) relaxations.
     ``with_iters`` returns (D, iters [S] int32), the relaxations each
-    row ran."""
+    row ran.
+
+    The kernel folds only each row's finite entries (adj < INF), from a
+    list in shared memory: for adj ≥ 0 a skipped entry's candidates are
+    ≥ INF and are never among the k smallest distinct values below INF,
+    so the result is the plain version's, bit for bit."""
     adj = adj.float().contiguous()
     src = src.to(torch.int32).contiguous()
     if _on_cpu(adj):
         D, iters = ref.ktrop_solve_ref(adj, src, k, max_iters)
     else:
-        D, iters = ktrop.solve(adj, src, k, max_iters)
+        D, iters, _ = ktrop.solve(adj, src, k, max_iters)
         LAUNCHES["ktrop_solve"] += 1
     return (D, iters) if with_iters else D
 

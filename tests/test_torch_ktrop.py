@@ -175,7 +175,7 @@ class TestCudaLaunchers:
             ktrop.relax_step(D, torch.zeros(1, 8, 8))
 
     def test_solve_shared_memory_limit(self):
-        assert ktrop.solve_smem(10, 256) == 20_480
+        assert ktrop.solve_smem(10, 256) == 54_280  # D tiles + in-edge list
         with pytest.raises(ValueError, match="shared memory"):
             ktrop.solve(torch.zeros(1, 2048, 2048),
                         torch.zeros(1, dtype=torch.int32), 16)
