@@ -32,9 +32,14 @@ phase that does not hold:
    ``ktrop_solve`` bitwise against their plain versions at z in
    {1, 96, 200, 256}, densities 30% and 2%, k in {1, 2, 10, 16}, and
    ``ktrop_solve`` at z=1000 (over the list's budget, dense loop), with
-   its loop report checked as in 3; ``bound_dist`` and
-   ``bound_dist_blocked`` against ``bound_dist_ref`` (rtol 2e-5) at E in
-   {1, 37, 2048} with a ragged B;
+   its loop report checked as in 3; ``bound_dist`` bitwise against
+   ``bound_dist_seq_ref`` (the sum in the kernel's order) and within rtol
+   2e-5 of ``bound_dist_ref``, its grouping against ``group_by_subgraph``,
+   under a permutation of the queries and over two launches, at E in
+   {1, 37, 2048} (and ``bound_dist_blocked`` there), all queries on one
+   subgraph, Zipf-like subgraphs, most subgraphs empty, B=0, B=300,001,
+   E=20,000 (79 segments) and running counts that are not exact (the
+   kernel's loop), wholly or from the middle of each row;
 7. the kspdg ``levels`` cell (S=8192, z=256, k=10, 48 iterations) on
    road-like subgraphs with integer vfrag weights, through the cell's own
    step: the step kernel bitwise against the plain step on every row,
@@ -44,7 +49,11 @@ phase that does not hold:
    the cell's own step (profile sort + ``bound_dist``), against the plain
    ``dense.bound_dist_batch`` (rtol 1e-4, atol 1e-3) and against
    ``bound_dist_ref`` (rtol 2e-5), with a float64 clip-sum as a third
-   opinion on one chunk; then ``kspdg_smoke(device="cuda")``.
+   opinion on one chunk; ``bound_dist`` bitwise against
+   ``bound_dist_seq_ref`` on that chunk, under a permutation of all the
+   queries and over two launches, its grouping against
+   ``group_by_subgraph``; the step, the profile sort, the grouping and the
+   evaluation timed; then ``kspdg_smoke(device="cuda")``.
 
 It imports nothing of JAX or of the reference package.  Without a card
 it exits non-zero and prints no result.  The last three lines are the
@@ -74,6 +83,22 @@ DENSE_S, DENSE_Z, DENSE_J = 8192, 256, 32  # refine_dense shape inventory
 PLAIN_CHUNK = 256  # slab rows per plain-version call (bounds its memory)
 LEVELS_K, LEVELS_ITERS = 10, 48  # the levels cell's ktrop_solve arguments
 BD_CHUNK = 1 << 18  # queries per plain bound-distance call
+# bound_dist at ragged and skewed shapes: (name, S, E, B, the queries'
+# subgraphs, exact running counts: True, False (fractional counts: the
+# kernel's loop) or "half" (exact on the first half of each row))
+BOUND_DIST_CASES = [
+    ("E=1", 5, 1, 1000, "uniform", True),
+    ("E=37", 5, 37, 1000, "uniform", True),
+    ("E=2048", 5, 2048, 1000, "uniform", True),
+    ("one subgraph", 64, 2048, 200_000, "one", True),
+    ("zipf", 4096, 512, 300_000, "zipf", True),
+    ("most empty", 100_000, 64, 50_000, "sparse", True),
+    ("B=0", 16, 256, 0, "uniform", True),
+    ("B=300001 E=301", 2048, 301, 300_001, "uniform", True),
+    ("E=20000", 16, 20_000, 5_000, "uniform", True),
+    ("inexact", 64, 700, 20_000, "uniform", False),
+    ("half exact", 64, 700, 20_000, "uniform", "half"),
+]
 
 
 def log(*parts):
@@ -580,39 +605,144 @@ def phase_ragged_index(torch, np, dev):
                 D = want
     check(loops["list"] > 0 and loops["dense"] > 0,
           ("both loops of ktrop_solve ran", loops))
-    for E in (1, 37, 2048):
-        S, B = 5, 1000  # ragged: not a multiple of the TPU's 256
-        w = np.sort(rng.uniform(0.1, 5.0, (S, E)).astype(np.float32), -1)
-        n = rng.integers(1, 9, (S, E)).astype(np.float32)
-        pad = rng.integers(0, E // 4 + 1, S)
-        for s in range(S):  # padding at the tail: w = INF, n = 0
-            if pad[s]:
-                w[s, -pad[s]:] = ref.INF
-                n[s, -pad[s]:] = 0.0
-        cb = np.concatenate([np.zeros((S, 1), np.float32),
-                             np.cumsum(n, -1)[:, :-1]], -1)
-        sub = rng.integers(0, S, B).astype(np.int32)
-        sub_blocked = rng.integers(0, S, -(-B // 256)).astype(np.int32)
-        phi = rng.uniform(0, 1.1 * float(n.sum(-1).max()), B).astype(
-            np.float32)
-        w, n, cb, sub, sub_blocked, phi = (
-            torch.from_numpy(a).to(dev)
-            for a in (w, n, cb, sub, sub_blocked, phi))
-        for got, sub_q in (
-                (ops.bound_dist(w, n, cb, sub, phi), sub),
-                (ops.bound_dist_blocked(w, n, cb, sub_blocked, phi),
-                 sub_blocked.repeat_interleave(256)[:B])):
-            want = ref.bound_dist_ref(w, n, cb, sub_q, phi)
-            torch.testing.assert_close(got, want, rtol=2e-5, atol=0.0)
     torch.cuda.synchronize()
     log("[ragged-index] ktrop_relax_step and ktrop_solve (D and iterations "
         "per row, to the fixed point and capped at 3) bitwise equal to "
         "plain at z in {1, 96, 200, 256}, densities 30% and 2%, k in "
         "{1, 2, 10, 16}, and ktrop_solve at z=1000, 30%, k=10; rows by "
-        f"loop {loops}, each as the data dictates, z=1000 all dense; "
-        "bound_dist and "
-        "bound_dist_blocked within rtol 2e-5 of bound_dist_ref at E in "
-        "{1, 37, 2048}, B=1000")
+        f"loop {loops}, each as the data dictates, z=1000 all dense")
+    times = {}
+    for what, S, E, B, kind, exact in BOUND_DIST_CASES:
+        w, n, cb, sub, phi = profile_inputs(torch, np, rng, S, E, B, kind,
+                                            exact, dev)
+        got, ms = check_bound_dist(torch, w, n, cb, sub, phi, what)
+        times[what] = ms
+        if what.startswith("E="):  # the TPU kernel's blocked signature
+            sub_blocked = torch.from_numpy(rng.integers(
+                0, S, -(-B // 256)).astype(np.int32)).to(dev)
+            sub_q = sub_blocked.repeat_interleave(256)[:B]
+            got_b = ops.bound_dist_blocked(w, n, cb, sub_blocked, phi)
+            check(torch.equal(got_b, ref.bound_dist_seq_ref(w, n, cb, sub_q,
+                                                             phi)),
+                  ("bound_dist_blocked vs bound_dist_seq_ref", what))
+            torch.testing.assert_close(
+                got_b, ref.bound_dist_ref(w, n, cb, sub_q, phi), rtol=2e-5,
+                atol=0.0)
+    check_evaluate_refusals(torch, np, rng, dev)
+    torch.cuda.synchronize()
+    log("[ragged-index] bound_dist bitwise equal to bound_dist_seq_ref and "
+        "within rtol 2e-5 of bound_dist_ref, its grouping equal to "
+        "group_by_subgraph (counts, offsets; ids per bucket), invariant "
+        "under a permutation of the queries and equal over two launches, "
+        "on every case; bound_dist_blocked likewise at E in {1, 37, 2048}; "
+        "the evaluation refuses a grouping with a field on the CPU or made "
+        "for another S; ms (median of 5) by case: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
+    return times
+
+
+def check_evaluate_refusals(torch, np, rng, dev):
+    """The evaluation half of the launcher raises ValueError, before any
+    launch, on a grouping that has a field the kernel reads on the CPU, or
+    that was made for another number of subgraphs."""
+    from repro_torch.kernels import bound_dist as launcher
+
+    S = 8
+    w, n, cb, sub, phi = profile_inputs(torch, np, rng, S, 64, 100,
+                                        "uniform", True, dev)
+    groups = launcher.group(sub, phi, S)
+    bad = [(f"{name} on the CPU",
+            groups._replace(**{name: getattr(groups, name).cpu()}))
+           for name in ("order", "phi_sorted", "item_off", "items")]
+    bad.append(("made for S + 1", launcher.group(sub, phi, S + 1)))
+    for what, wrong in bad:
+        try:
+            launcher.evaluate(w, n, cb, wrong)
+        except ValueError:
+            continue
+        check(False, ("bound_dist evaluation took a grouping", what))
+    torch.cuda.synchronize()
+
+
+def profile_inputs(torch, np, rng, S, E, B, kind, exact, dev):
+    """A sorted profile (unit weights in [0.1, 5), vfrag counts 1-8, a
+    padded tail of up to E/4 entries per row: w = INF, n = 0) with its
+    exclusive running count in f32, and B queries with φ up to 1.1 times
+    the largest row total on subgraphs drawn uniformly ("uniform"), all on
+    one ("one"), Zipf-like ("zipf") or among 1% of them ("sparse")."""
+    from repro_torch.kernels.ref import INF
+
+    w = np.sort(rng.uniform(0.1, 5.0, (S, E)).astype(np.float32), -1)
+    n = rng.integers(1, 9, (S, E)).astype(np.float32)
+    if exact is not True:  # fractional counts: rounded running counts
+        n[:, E // 2 if exact == "half" else 0:] += np.float32(0.1)
+    pad = rng.integers(0, E // 4 + 1, S)
+    tail = np.arange(E)[None, :] >= (E - pad)[:, None]
+    w[tail] = INF
+    n[tail] = 0.0
+    cb = np.concatenate([np.zeros((S, 1), np.float32),
+                         np.cumsum(n, -1, dtype=np.float32)[:, :-1]], -1)
+    if kind == "uniform":
+        sub = rng.integers(0, S, B)
+    elif kind == "one":
+        sub = np.full(B, S // 3)
+    elif kind == "zipf":
+        sub = np.minimum(rng.zipf(1.3, B) - 1, S - 1)
+    else:
+        sub = rng.choice(rng.choice(S, max(1, S // 100), replace=False), B)
+    phi = rng.uniform(0, 1.1 * float(n.sum(-1).max()), B).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in
+            (w, n, cb, sub.astype(np.int32), phi)]
+
+
+def check_groups(torch, groups, sub, phi, S, what):
+    """The kernel's grouping against ``ref.group_by_subgraph``: counts and
+    offsets equal, the ids a permutation with each in its own subgraph's
+    bucket (the order inside a bucket is free), φ in bucket order."""
+    from repro_torch.kernels import ref
+
+    counts, offsets, order = ref.group_by_subgraph(sub, S)
+    check(torch.equal(groups.counts, counts)
+          and torch.equal(groups.offsets, offsets),
+          ("bound_dist grouping: counts or offsets", what))
+    ids = groups.order.long()
+    check(torch.equal(torch.sort(ids).values,
+                      torch.arange(ids.numel(), device=ids.device)),
+          ("bound_dist grouping: ids are not a permutation", what))
+    check(torch.equal(sub[ids], sub[order.long()]),
+          ("bound_dist grouping: an id in another bucket", what))
+    check(torch.equal(groups.phi_sorted, phi[ids]),
+          ("bound_dist grouping: phi out of bucket order", what))
+
+
+def check_bound_dist(torch, w, n, cb, sub, phi, what):
+    """``ops.bound_dist`` bitwise against ``bound_dist_seq_ref`` and within
+    rtol 2e-5 of ``bound_dist_ref``, its grouping against the plain one,
+    invariant under a permutation of the queries and over two launches.
+    Returns (BD, ms: median of 5)."""
+    from repro_torch.kernels import bound_dist as launcher
+    from repro_torch.kernels import ops, ref
+
+    S, B = w.shape[0], phi.shape[0]
+    got = ops.bound_dist(w, n, cb, sub, phi)
+    check(torch.equal(got, ref.bound_dist_seq_ref(w, n, cb, sub, phi)),
+          ("bound_dist vs bound_dist_seq_ref", what))
+    if B:
+        torch.testing.assert_close(
+            got, torch.cat([ref.bound_dist_ref(w, n, cb, sub[i:i + BD_CHUNK],
+                                               phi[i:i + BD_CHUNK])
+                            for i in range(0, B, BD_CHUNK)]),
+            rtol=2e-5, atol=0.0)
+    check_groups(torch, launcher.group(sub, phi, S), sub, phi, S, what)
+    gen = torch.Generator(device=phi.device).manual_seed(SEED + 5)
+    perm = torch.randperm(B, generator=gen, device=phi.device)
+    check(torch.equal(ops.bound_dist(w, n, cb, sub[perm], phi[perm]),
+                      got[perm]),
+          ("bound_dist under a permutation of the queries", what))
+    check(torch.equal(ops.bound_dist(w, n, cb, sub, phi), got),
+          ("bound_dist over two launches", what))
+    return got, cuda_ms(torch, lambda: ops.bound_dist(w, n, cb, sub, phi),
+                        repeats=5)
 
 
 def timed(torch, fn):
@@ -734,8 +864,33 @@ def maintain_inputs(torch, S, E, B, dev):
     return unit_w, unit_n, sub, phi
 
 
+def bound_dist_need(torch, cb, sub, phi):
+    """What ``bound_dist`` must move and compute on this run's data:
+    (bytes, operations).  A query sums its terms up to its stop k (the
+    first e with cum_before[e] >= φ, else E), so a subgraph's row is needed
+    up to the largest stop of its queries: w and n below it, cum_before up
+    to it (the stop test), 12 bytes per entry at most; rows without a
+    query are not needed.  Each query reads sub and φ and writes BD (12
+    bytes) and does 5 operations per term (subtract, min, multiply, add
+    and the stop test)."""
+    S, E = cb.shape
+    sub_l = sub.long()
+    stop = torch.empty_like(sub_l)
+    for i in range(0, sub_l.numel(), BD_CHUNK):
+        ge = cb[sub_l[i:i + BD_CHUNK]] >= phi[i:i + BD_CHUNK, None]
+        stop[i:i + BD_CHUNK] = torch.where(ge.any(dim=1),
+                                           ge.int().argmax(dim=1), E)
+    row = torch.zeros(S, dtype=torch.long, device=cb.device).scatter_reduce_(
+        0, sub_l, stop, "amax")
+    has = torch.bincount(sub_l, minlength=S) > 0
+    row_bytes = (8 * row + 4 * torch.clamp(row + 1, max=E)) * has
+    return (float(row_bytes.sum()) + 12.0 * sub.numel(),
+            5.0 * float(stop.sum()))
+
+
 def phase_maintain(torch, dev, cell):
     from repro_torch.engine import dense
+    from repro_torch.kernels import bound_dist as launcher
     from repro_torch.kernels import ops, ref
 
     step = cell.step_fn
@@ -766,6 +921,42 @@ def phase_maintain(torch, dev, cell):
     check(torch.equal(got, bd), "maintain: the step and the kernel differ")
     kernel_ms = cuda_ms(torch, lambda: ops.bound_dist(w_s, n_s, cb, sub, phi),
                         repeats=5)
+    # its two parts: the grouping on the card, then the evaluation
+    groups = launcher.group(sub, phi, S)
+    check_groups(torch, groups, sub, phi, S, "maintain")
+    check(torch.equal(launcher.evaluate(w_s, n_s, cb, groups), got),
+          "maintain: the evaluation alone differs")
+    group_ms = cuda_ms(torch, lambda: launcher.group(sub, phi, S), repeats=5)
+    eval_ms = cuda_ms(torch, lambda: launcher.evaluate(w_s, n_s, cb, groups),
+                      repeats=5)
+    del groups
+    # the same sum in the kernel's order, bit for bit, on the first chunk
+    q = slice(0, BD_CHUNK)
+    check(torch.equal(got[q], ref.bound_dist_seq_ref(w_s, n_s, cb, sub[q],
+                                                     phi[q])),
+          "maintain: bound_dist differs from bound_dist_seq_ref")
+    # the loop form at this shape: running counts shifted by 0.5 past the
+    # first entry are not exact, so every row runs the per-query loop from
+    # its first segment on; on integer φ each query stops where it stops
+    # on cb, so it sums as many terms
+    cb_loop = cb + 0.5
+    cb_loop[:, 0] = cb[:, 0]
+    got_loop = ops.bound_dist(w_s, n_s, cb_loop, sub, phi)
+    check(torch.equal(got_loop[q], ref.bound_dist_seq_ref(
+              w_s, n_s, cb_loop, sub[q], phi[q])),
+          "maintain: the loop form differs from bound_dist_seq_ref")
+    loop_ms = cuda_ms(torch, lambda: ops.bound_dist(w_s, n_s, cb_loop, sub,
+                                                    phi), repeats=5)
+    del got_loop, cb_loop
+    # the queries in another order, and a second launch
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    perm = torch.randperm(B, generator=gen, device=dev)
+    check(torch.equal(ops.bound_dist(w_s, n_s, cb, sub[perm], phi[perm]),
+                      got[perm]),
+          "maintain: bound_dist under a permutation of the queries")
+    del perm
+    check(torch.equal(ops.bound_dist(w_s, n_s, cb, sub, phi), got),
+          "maintain: bound_dist over two launches")
     want_ref, ref_ms = timed(torch, lambda: torch.cat([
         ref.bound_dist_ref(w_s, n_s, cb, sub[i:i + BD_CHUNK],
                            phi[i:i + BD_CHUNK])
@@ -779,7 +970,6 @@ def phase_maintain(torch, dev, cell):
            / want.double().abs().clamp(min=1e-30))
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
     # a third opinion: the clip-sum in float64 on the first chunk
-    q = slice(0, BD_CHUNK)
     sq = sub[q].long()
     take = torch.minimum((phi[q].double()[:, None] - cb[sq].double())
                          .clamp(min=0.0), n_s[sq].double())
@@ -789,21 +979,35 @@ def phase_maintain(torch, dev, cell):
         return float(((x[q].double() - f64).abs()
                       / f64.abs().clamp(min=1e-30)).max())
 
-    bytes_moved = 3 * S * E * 4 + B * 12
-    kb, kby = bound_ms(bytes_moved, 5.0 * B * E)
+    need_bytes, need_ops = bound_dist_need(torch, cb, sub, phi)
+    kb, kby = bound_ms(need_bytes, need_ops)
+    whole_ms, _ = bound_ms(3 * S * E * 4 + B * 12, 0.0)
     log(f"[maintain] step (sort + bound_dist) {step_ms:.3f} ms (median of "
         f"3), peak {peak / 1e9:.2f} GB allocated; profile sort "
-        f"{sort_ms:.3f} ms; bound_dist {kernel_ms:.3f} ms (median of 5), "
-        f"bound {kb:.3f} ms ({kby}); plain bound_dist_ref {ref_ms:.1f} ms, "
-        f"plain dense.bound_dist_batch {plain_ms:.1f} ms (in chunks of "
-        f"{BD_CHUNK}); largest relative error vs bound_dist_batch "
-        f"{float(rel.max()):.3e}; vs a float64 clip-sum on {BD_CHUNK} "
-        f"queries: kernel {rel64(got):.3e}, bound_dist_batch "
-        f"{rel64(want):.3e}, bound_dist_ref {rel64(want_ref):.3e}")
+        f"{sort_ms:.3f} ms; bound_dist {kernel_ms:.3f} ms (median of 5): "
+        f"grouping {group_ms:.3f} ms, evaluation {eval_ms:.3f} ms; the "
+        f"per-query loop form on this shape (counts not exact) "
+        f"{loop_ms:.3f} ms (median of 5); bound {kb:.3f} ms ({kby}: "
+        f"{need_bytes / 1e9:.3f} GB and {need_ops:.4g} operations this "
+        f"data needs; the whole profile {whole_ms:.3f} ms); plain "
+        f"bound_dist_ref {ref_ms:.1f} ms, plain "
+        f"dense.bound_dist_batch {plain_ms:.1f} ms (in chunks of "
+        f"{BD_CHUNK}); bitwise equal to bound_dist_seq_ref on {BD_CHUNK} "
+        f"queries, to itself under a permutation of all {B} queries and over "
+        f"two launches; grouping equal to group_by_subgraph; largest "
+        f"relative error vs bound_dist_batch {float(rel.max()):.3e}; vs a "
+        f"float64 clip-sum on {BD_CHUNK} queries: kernel {rel64(got):.3e}, "
+        f"bound_dist_batch {rel64(want):.3e}, bound_dist_ref "
+        f"{rel64(want_ref):.3e}")
     return launches, {
         "bound_dist": dict(ms=kernel_ms, plain_ms=ref_ms, bound_ms=kb,
                            bound_by=kby,
-                           max_abs_err=max_abs_err(torch, got, want_ref)),
+                           max_abs_err=max_abs_err(torch, got, want_ref),
+                           group_ms=group_ms, eval_ms=eval_ms,
+                           loop_form_ms=loop_ms, need_bytes=need_bytes,
+                           need_ops=need_ops, whole_profile_bound_ms=whole_ms,
+                           sort_ms=sort_ms, step_ms=step_ms,
+                           step_peak_gb=peak / 1e9),
     }
 
 
@@ -844,7 +1048,7 @@ def main() -> int:
     timings["bf_solve_grouped"]["serving_shape_ms"] = phase_serving_shape(
         torch, dev)
     launches = phase_serving(torch, np)
-    phase_ragged_index(torch, np, dev)
+    bound_dist_cases = phase_ragged_index(torch, np, dev)
     torch.cuda.empty_cache()
     for path, shape in ((phase_levels, "levels"),
                         (phase_maintain, "maintain")):
@@ -853,6 +1057,7 @@ def main() -> int:
         launches = {name: launches.get(name, 0) + n
                     for name, n in path_launches.items()}
         torch.cuda.empty_cache()
+    timings["bound_dist"]["cases_ms"] = bound_dist_cases
     phase_kspdg_smoke()
 
     sources = {  # kernel -> (CUDA source, the TPU kernel it replaces)

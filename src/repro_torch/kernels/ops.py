@@ -118,8 +118,18 @@ def ktrop_solve(adj, src, k: int, max_iters: int | None = None,
 
 def bound_dist(w_sorted, n_sorted, cum_before, sub, phi):
     """Bound distances of B queries, each on its own subgraph's
-    ascending profile: w_sorted/n_sorted/cum_before [S,E], sub [B] int,
-    phi [B] → BD [B] f32 (``ref.bound_dist_ref``'s signature)."""
+    ascending profile: w_sorted/n_sorted/cum_before [S,E], sub [B] int
+    (any order), phi [B] → BD [B] f32 (``ref.bound_dist_ref``'s
+    signature).
+
+    On the card the queries are grouped by subgraph first; each sum is
+    the one taken in ascending e, one rounding per step, stopping at the
+    first e with cum_before[e] ≥ φ: ``ref.bound_dist_seq_ref``, bit for
+    bit, whatever the grouping.  That stop drops only terms w·(+0) = +0,
+    so it gives the full clip-sum's sequential bytes, for w ≥ 0, n ≥ 0
+    and cum_before the exclusive running count of n (non-decreasing),
+    which every caller meets (the ``maintain`` step builds it as
+    cum_n − n).  φ and cum_before hold no NaN."""
     args = (w_sorted.float().contiguous(), n_sorted.float().contiguous(),
             cum_before.float().contiguous(), sub.to(torch.int32).contiguous(),
             phi.float().contiguous())
@@ -133,7 +143,8 @@ def bound_dist(w_sorted, n_sorted, cum_before, sub, phi):
 def bound_dist_blocked(w_sorted, n_sorted, cum_before, sub_blocked, phi):
     """The TPU kernel's blocked signature: sub_blocked [ceil(B/256)] is
     the subgraph of each block of 256 consecutive queries.  Expands it
-    to one index per query and runs :func:`bound_dist`."""
+    to one index per query and runs :func:`bound_dist` (which groups
+    them again on the card)."""
     B = phi.shape[0]
     n_blocks = -(-B // BOUND_DIST_BLOCK)
     if sub_blocked.shape != (n_blocks,):

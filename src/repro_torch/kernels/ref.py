@@ -3,8 +3,10 @@
 They are the ground truth the kernels are held to on the card, and what
 the wrappers in :mod:`repro_torch.kernels.ops` run on CPU tensors.  The
 min-plus ones (``bf_*``, ``ktrop_*``) use only f32 add, min, compare and
-sort, so the kernels must match them bit for bit; ``bound_dist_ref``
-sums floats, so its kernel is held to a tolerance.
+sort, so the kernels must match them bit for bit.  ``bound_dist_ref``
+sums floats in torch's order, so the kernel is held to it by a tolerance
+and to ``bound_dist_seq_ref``, the same sum in the kernel's order, bit
+for bit; ``group_by_subgraph`` is the kernel's grouping of the queries.
 """
 
 from __future__ import annotations
@@ -91,3 +93,38 @@ def bound_dist_ref(w_sorted, n_sorted, cum_before, sub, phi):
     take = torch.minimum(
         torch.clamp(phi[:, None] - cum_before[sub], min=0.0), n_sorted[sub])
     return (w_sorted[sub] * take).sum(dim=-1)
+
+
+def bound_dist_seq_ref(w_sorted, n_sorted, cum_before, sub, phi):
+    """``bound_dist_ref`` in the Hopper kernel's order: per query, the
+    clip-sum over ascending e, each step rounded on its own (subtract,
+    clamp, multiply, add), stopping at the first e with
+    cum_before[e] ≥ φ.  Same signature and shapes.
+
+    Where cum_before is the exclusive running count of n ≥ 0 and w ≥ 0,
+    every term after the stop is w·(+0) = +0, so the stop gives the loop
+    run to E, bit for bit."""
+    sub = sub.long()
+    acc = torch.zeros(phi.shape, dtype=torch.float32, device=phi.device)
+    alive = torch.ones(phi.shape, dtype=torch.bool, device=phi.device)
+    for e in range(w_sorted.shape[-1]):
+        c = cum_before[sub, e]
+        alive &= ~(c >= phi)
+        take = torch.minimum(torch.clamp(phi - c, min=0.0), n_sorted[sub, e])
+        acc = torch.where(alive, acc + w_sorted[sub, e] * take, acc)
+        if e % 64 == 63 and not bool(alive.any()):
+            break
+    return acc
+
+
+def group_by_subgraph(sub, S: int):
+    """The kernel's grouping of B queries by subgraph: (counts [S],
+    offsets [S+1] (each bucket's first position), order [B]: query ids
+    by subgraph, stable), all int32.  The kernel's order inside a bucket
+    is not stable; its counts and offsets are these."""
+    sub = sub.long()
+    counts = torch.bincount(sub, minlength=S).to(torch.int32)
+    offsets = torch.zeros(S + 1, dtype=torch.int32, device=sub.device)
+    offsets[1:] = counts.cumsum(0)
+    order = torch.sort(sub, stable=True).indices.to(torch.int32)
+    return counts, offsets, order
