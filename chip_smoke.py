@@ -11,10 +11,15 @@ phase that does not hold:
    nvcc (one process per source, all at once) and prints ptxas' report;
 3. kernels at ragged shapes: ``bf_relax_step`` and ``bf_solve_grouped``
    against their plain PyTorch versions on the same inputs, bitwise, at
-   densities 30% and 2%, finite caps and cap = INF; the fused solve's
-   per-block report of which loop it ran (its in-edge list, or the dense
-   loop where a column is over the list's budget) must be what the data
-   dictates, and both loops must have run;
+   densities 30% and 2%, finite caps and cap = INF, J in {33, 40} and
+   z % 4 != 0; each kernel's per-block report of which path it ran (its
+   in-edge list, or the dense loop or scan where a column is over the
+   list's budget or, for the step, where a distance is < 0 or a cap >
+   INF) must be what the data dictates, and both paths must have run;
+   ``bf_relax_step`` also on adjacency views that start off a 16-byte
+   boundary and on inputs that fail each of its checks (a negative
+   distance, cap = +inf, a NaN cap) or that need none (negative
+   weights, +inf distances);
 4. the fused solve at the refine_dense shape (S=8192 slab rows, z=256,
    J=32) on road-like adjacency with Yen-style masks and finite caps:
    both kernels against their plain versions on every row, bitwise, and
@@ -30,11 +35,13 @@ phase that does not hold:
    ``bf_solve_grouped``;
 6. index kernels at ragged shapes: ``ktrop_relax_step`` and
    ``ktrop_solve`` bitwise against their plain versions at z in
-   {1, 96, 200, 256}, densities 30% and 2%, k in {1, 2, 10, 16}, and
-   ``ktrop_solve`` at z=1000 (over the list's budget, dense loop), with
-   its loop report checked as in 3; ``bound_dist`` bitwise against
-   ``bound_dist_seq_ref`` (the sum in the kernel's order) and within rtol
-   2e-5 of ``bound_dist_ref``, its grouping against ``group_by_subgraph``,
+   {1, 33, 96, 200, 256}, densities 30% and 2%, k in {1, 2, 10, 16}, and
+   both at z=1000, 30% (over the list's budget, dense) and 0.4%, with
+   their path reports checked as in 3; ``ktrop_relax_step`` also on
+   offset views, a negative level (dense) and negative weights (list);
+   ``bound_dist`` bitwise against ``bound_dist_seq_ref`` (the sum in the
+   kernel's order) and within rtol 2e-5 of ``bound_dist_ref``, its
+   grouping against ``group_by_subgraph``,
    under a permutation of the queries and over two launches, at E in
    {1, 37, 2048} (and ``bound_dist_blocked`` there), all queries on one
    subgraph, Zipf-like subgraphs, most subgraphs empty, B=0, B=300,001,
@@ -42,7 +49,8 @@ phase that does not hold:
    kernel's loop), wholly or from the middle of each row;
 7. the kspdg ``levels`` cell (S=8192, z=256, k=10, 48 iterations) on
    road-like subgraphs with integer vfrag weights, through the cell's own
-   step: the step kernel bitwise against the plain step on every row,
+   step: the step kernel bitwise against the plain step on every row
+   (its inputs checked on the host to take the list path, and it did),
    the fused solve (D and per-row iterations) bitwise against the plain
    solve on every row, every row on its list;
 8. the kspdg ``maintain`` cell (S=122,880, E=2,048, B=4,000,000) through
@@ -221,6 +229,37 @@ def list_expected(torch, adj, slots):
         torch.zeros(adj.shape[0], dtype=torch.bool, device=adj.device)
 
 
+def bf_step_path(torch, dist, cap, adj, jt, slots):
+    """The path each ``bf_relax_step`` block must take [S, ceil(J/jt)]:
+    its in-edge list (1) where its distances are all >= 0, its caps all
+    <= INF and every column of the row within the list's slots, else the
+    dense scan (0)."""
+    from repro_torch.kernels.ref import INF
+
+    S, J, _ = dist.shape
+    ok = (dist >= 0).all(dim=2) & (cap <= INF)
+    fits = list_expected(torch, adj, slots)
+    return torch.stack([ok[:, j0:j0 + jt].all(dim=1) & fits
+                        for j0 in range(0, J, jt)], dim=1).int()
+
+
+def ktrop_step_path(torch, D, adj, slots):
+    """The path each ``ktrop_relax_step`` row must take [S]: the list (1)
+    where D[s] >= 0 and every column fits its slots, else every u (0)."""
+    return ((D >= 0).flatten(1).all(dim=1)
+            & list_expected(torch, adj, slots)).int()
+
+
+def offset_copy(torch, t, floats):
+    """A contiguous copy of ``t`` whose storage starts ``floats`` f32
+    past a fresh allocation (off a 16-byte boundary unless floats % 4 is
+    0): the view a slice such as ``big[1:]`` gives."""
+    big = torch.empty(t.numel() + floats, dtype=t.dtype, device=t.device)
+    view = big[floats:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def bf_solve_ops(torch, adj, iters, J, jt):
     """Operations the fused BF solve needs on this data: 2·jn·nnz(adj[s])
     add+min per block and iteration (jn problems of the block), plus the
@@ -252,8 +291,10 @@ def phase_build():
         log(f"[build] {name}: {len(regs)} kernel instantiations, "
             f"{min(regs)}-{max(regs)} registers per thread, at most "
             f"{max(spills)} bytes of spill stores (ptxas -v)")
-    # registers of each fused solve's instantiation (template argument)
-    for name, kernel in (("bf_relax", "bf_solve_grouped_kernel"),
+    # registers of each kernel's instantiation (template argument)
+    for name, kernel in (("bf_relax", "bf_relax_step_kernel"),
+                         ("bf_relax", "bf_solve_grouped_kernel"),
+                         ("ktrop", "ktrop_relax_step_kernel"),
                          ("ktrop", "ktrop_solve_kernel")):
         per = {}
         entry = None
@@ -277,12 +318,13 @@ def phase_ragged(torch, np, dev):
 
     rng = np.random.default_rng(SEED)
     shapes = [(3, 1, 96), (2, 3, 200), (4, 8, 128), (2, 40, 33),
-              (1, 5, 1000), (5, 32, 256)]
+              (1, 5, 1000), (5, 32, 256), (2, 33, 97), (2, 40, 250)]
     # (one-hot spurs, density, cap = INF): 30% rows run the dense loop
     # (except at z=33), 2% rows the in-edge list
     variants = [(False, 0.3, False), (True, 0.3, False), (True, 0.3, True),
                 (True, 0.02, False), (False, 0.02, True)]
     loops = {"list": 0, "dense": 0}
+    step_paths = {"list": 0, "dense": 0}
     for S, J, z in shapes:
         jt = bf_relax.tile_width(J, z, bf_relax.solve_smem)
         slots = _build.edge_list_slots(bf_relax.tile_smem(jt, z), z)
@@ -294,6 +336,8 @@ def phase_ragged(torch, np, dev):
             got = ops.bf_relax_step(init, adj, so, bn, cap)
             want = ref.bf_relax_ref(init, adj, so, bn, cap)
             check(torch.equal(got, want), ("bf_relax_step", what))
+            check_bf_step(torch, init, adj, so, bn, cap, want, what,
+                          step_paths)
             d, p = ops.bf_solve_grouped(*args)
             wd, wp, wit = ref.bf_solve_grouped_ref(*args, with_iters=True)
             check(torch.equal(d, wd) and torch.equal(p, wp),
@@ -321,8 +365,81 @@ def phase_ragged(torch, np, dev):
     log(f"[ragged] bf_relax_step and bf_solve_grouped (dist, parents and "
         f"iterations per row) bitwise equal to plain at (S,J,z) in {shapes}, "
         f"general and one-hot masks, densities 30% and 2%, finite caps and "
-        f"cap = INF; blocks by loop {loops}, each as the data dictates "
-        f"(every column within the list's slots), z=1000 at 30% all dense")
+        f"cap = INF; solve blocks by loop {loops}, step blocks by path "
+        f"{step_paths}, each as the data dictates (every column within the "
+        f"list's slots; for the step also distances >= 0 and caps <= INF), "
+        f"z=1000 at 30% all dense")
+    cases = bf_step_cases(torch, np, rng, dev)
+    torch.cuda.synchronize()
+    log(f"[ragged] bf_relax_step bitwise equal to plain, with the path each "
+        f"block must take, on adjacency views off a 16-byte boundary and "
+        f"inputs that fail or need no check: " + "; ".join(
+            f"{name} {paths}" for name, paths in cases.items()))
+
+
+def check_bf_step(torch, dist, adj, so, bn, cap, want, what, paths):
+    """``bf_relax_step`` through its launcher: bitwise ``want`` and the
+    path report ``bf_step_path`` dictates; counts the paths in ``paths``."""
+    from repro_torch.kernels import bf_relax
+
+    S, J, z = dist.shape
+    jt = bf_relax.tile_width(J, z, bf_relax.step_smem)
+    got, path = bf_relax.relax_step(dist, adj, so, bn, cap, with_path=True)
+    check(torch.equal(got, want), ("bf_relax_step", what))
+    check(torch.equal(path, bf_step_path(
+        torch, dist, cap, adj, jt, bf_relax.step_layout(jt, z)[0])),
+        ("bf_relax_step path report", what, path.tolist()))
+    n_list = int(path.sum())
+    paths["list"] += n_list
+    paths["dense"] += path.numel() - n_list
+
+
+def bf_step_cases(torch, np, rng, dev):
+    """``bf_relax_step`` on list rows (density 2%, or 1/z where lower) on
+    adjacency views that start 1, 2 or 3 floats off a 16-byte boundary or
+    one row in (as ``big[1:]``), and on inputs that fail a check (a
+    negative distance, where d + INF < INF may win at a non-edge; cap =
+    +inf; a NaN cap) or need none (negative weights are edges; +inf
+    distances); bitwise against the plain step, with the path each block
+    must take.  Returns the paths by case."""
+    from repro_torch.kernels import ref
+
+    out = {}
+    for S, J, z in ((2, 33, 97), (3, 8, 256), (2, 5, 1000)):
+        adj, init, _, so, bn, cap = (torch.from_numpy(a).to(dev) for a in
+                                     ragged_inputs(np, rng, S, J, z, True,
+                                                   min(0.02, 1.0 / z)))
+        neg_d = init.clone()
+        neg_d[0, 0, 1] = -1e37
+        inf_d = init.clone()
+        inf_d[:, :, -1] = float("inf")
+        cap_inf = cap.clone()
+        cap_inf[S - 1, 0] = float("inf")
+        cap_nan = cap.clone()
+        cap_nan[0, J - 1] = float("nan")
+        neg_w = adj.clone()
+        flip = (neg_w < ref.INF) & (torch.rand(neg_w.shape, device=dev) < 0.3)
+        neg_w[flip] *= -1.0
+        cases = [("aligned", init, adj, cap)]
+        cases += [(f"offset {f}", init, offset_copy(torch, adj, f), cap)
+                  for f in (1, 2, 3, z * z)]
+        cases += [("negative distance", neg_d, adj, cap),
+                  ("+inf distances", inf_d, adj, cap),
+                  ("cap=+inf", init, adj, cap_inf),
+                  ("NaN cap", init, adj, cap_nan),
+                  ("negative weights", init, neg_w, cap)]
+        for name, dist, a, c in cases:
+            paths = {"list": 0, "dense": 0}
+            want = ref.bf_relax_ref(dist, a, so, bn, c)
+            check_bf_step(torch, dist, a, so, bn, c, want, (name, S, J, z),
+                          paths)
+            key = f"{name} (S,J,z)={(S, J, z)}"
+            out[key] = paths
+            dense_wanted = name in ("negative distance", "cap=+inf",
+                                    "NaN cap")
+            check(paths["dense"] > 0 if dense_wanted else
+                  paths["dense"] == 0, ("bf_relax_step path", key, paths))
+    return out
 
 
 def phase_refine_dense(torch, dev, cell):
@@ -337,7 +454,15 @@ def phase_refine_dense(torch, dev, cell):
         f"{adj_bytes / 2**30:.2f} GiB on the card")
     rows = torch.arange(S, device=dev)
 
-    # --- one relaxation (bf_relax_step)
+    # --- one relaxation (bf_relax_step); its inputs meet the list path's
+    # checks (distances >= 0, caps <= INF, every column within the slots),
+    # so the list path is the one timed
+    step_jt = bf_relax.tile_width(J, z, bf_relax.step_smem)
+    step_slots = bf_relax.step_layout(step_jt, z)[0]
+    check(bool(bf_step_path(torch, init, cap, adj, step_jt, step_slots).all()),
+          "refine_dense step inputs fail the list path's checks")
+    _, step_path = bf_relax.relax_step(init, adj, so, bn, cap, with_path=True)
+    check(bool(step_path.all()), "refine_dense step blocks ran dense")
     step_ms = cuda_ms(torch, lambda: ops.bf_relax_step(init, adj, so, bn, cap),
                       repeats=7)
     got = ops.bf_relax_step(init, adj, so, bn, cap)
@@ -351,11 +476,15 @@ def phase_refine_dense(torch, dev, cell):
     check(torch.equal(got, want), "bf_relax_step differs at refine_dense")
     step_err = max_abs_err(torch, got, want)
     n = S * J * z
-    step_bound, step_by = bound_ms(adj_bytes + n * 4 * 2 + n * 2 + S * J * 4,
-                                   2.0 * S * J * z * z)
+    step_bytes = adj_bytes + n * 4 * 2 + n * 2 + S * J * 4
+    step_bound, step_by = bound_ms(step_bytes, 2.0 * S * J * z * z)
     log(f"[refine_dense] bf_relax_step: {step_ms:.3f} ms (median of 7), "
-        f"plain {step_plain_ms:.1f} ms, bound {step_bound:.3f} ms "
-        f"({step_by}), bitwise equal on all {S} rows")
+        f"{step_bytes / step_ms / 1e6:.0f} GB/s of the {step_bytes / 1e9:.3f} "
+        f"GB it must move, plain {step_plain_ms:.1f} ms, bound "
+        f"{step_bound:.3f} ms ({step_by}); every block on its in-edge list "
+        f"({bf_relax.step_smem(step_jt, z)} B of shared memory per block, "
+        f"{bf_relax.step_blocks_per_sm(J, z)} blocks per SM); bitwise equal "
+        f"on all {S} rows")
 
     # --- the fused fixed point with parents (bf_solve_grouped)
     dist, parent, iters, used = bf_relax.solve_grouped(adj, init, bv, so, bn,
@@ -565,8 +694,10 @@ def phase_ragged_index(torch, np, dev):
     # (z, density, k values): 30% rows run the dense loop (z > 1), 2% rows
     # the in-edge list; z=1000 at 30% (about 300 entries per column) is
     # over any list budget
-    cases = [(z, density, (1, 2, 10, 16)) for z in (1, 96, 200, 256)
-             for density in (0.3, 0.02)] + [(1000, 0.3, (10,))]
+    cases = [(z, density, (1, 2, 10, 16)) for z in (1, 33, 96, 200, 256)
+             for density in (0.3, 0.02)] + [(1000, 0.3, (10,)),
+                                            (1000, 0.004, (10,))]
+    step_paths = {"list": 0, "dense": 0}
     for z, density, ks in cases:
         S = 3
         adj = rng.integers(1, 9, (S, z, z)).astype(np.float32)
@@ -586,7 +717,7 @@ def phase_ragged_index(torch, np, dev):
                   and torch.equal(used.bool(),
                                   list_expected(torch, adj, slots)),
                   ("ktrop_solve loop report", z, density, k))
-            if z == 1000:
+            if z == 1000 and density == 0.3:
                 check(not used.any(), "z=1000 at 30% ran the in-edge list")
             loops["list"] += int(used.sum())
             loops["dense"] += used.numel() - int(used.sum())
@@ -594,23 +725,32 @@ def phase_ragged_index(torch, np, dev):
             w3, wit3 = ref.ktrop_solve_ref(adj, src, k, 3)
             check(torch.equal(d3, w3) and torch.equal(it3, wit3),
                   ("ktrop_solve max_iters=3", z, density, k))
-            if z == 1000:
-                continue
             D = w3  # a mid-relaxation state, ascending along k
             for _ in range(2):
                 got = ops.ktrop_relax_step(D, adj)
                 want = ref.ktrop_relax_ref(D, adj)
                 check(torch.equal(got, want), ("ktrop_relax_step", z, k))
                 check(not torch.isinf(got).any(), ("+inf in ktrop", z, k))
+                check_ktrop_step(torch, D, adj, want, (z, density, k),
+                                 step_paths)
                 D = want
     check(loops["list"] > 0 and loops["dense"] > 0,
           ("both loops of ktrop_solve ran", loops))
     torch.cuda.synchronize()
+    check(step_paths["list"] > 0 and step_paths["dense"] > 0,
+          ("both paths of ktrop_relax_step ran", step_paths))
     log("[ragged-index] ktrop_relax_step and ktrop_solve (D and iterations "
         "per row, to the fixed point and capped at 3) bitwise equal to "
-        "plain at z in {1, 96, 200, 256}, densities 30% and 2%, k in "
-        "{1, 2, 10, 16}, and ktrop_solve at z=1000, 30%, k=10; rows by "
-        f"loop {loops}, each as the data dictates, z=1000 all dense")
+        "plain at z in {1, 33, 96, 200, 256}, densities 30% and 2%, k in "
+        "{1, 2, 10, 16}, and at z=1000, 30% and 0.4%, k=10; solve rows by "
+        f"loop {loops}, step rows by path {step_paths}, each as the data "
+        "dictates, z=1000 at 30% all dense")
+    cases = ktrop_step_cases(torch, np, rng, dev)
+    torch.cuda.synchronize()
+    log("[ragged-index] ktrop_relax_step bitwise equal to plain, with the "
+        "path each row must take, on adjacency views off a 16-byte "
+        "boundary, a negative level and negative weights: " + "; ".join(
+            f"{name} {paths}" for name, paths in cases.items()))
     times = {}
     for what, S, E, B, kind, exact in BOUND_DIST_CASES:
         w, n, cb, sub, phi = profile_inputs(torch, np, rng, S, E, B, kind,
@@ -639,6 +779,63 @@ def phase_ragged_index(torch, np, dev):
         "for another S; ms (median of 5) by case: "
         + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
     return times
+
+
+def check_ktrop_step(torch, D, adj, want, what, paths):
+    """``ktrop_relax_step`` through its launcher: bitwise ``want`` and the
+    path report ``ktrop_step_path`` dictates; counts the paths."""
+    from repro_torch.kernels import ktrop
+
+    S, k, z = D.shape
+    got, path = ktrop.relax_step(D, adj, with_path=True)
+    check(torch.equal(got, want), ("ktrop_relax_step", what))
+    check(torch.equal(path, ktrop_step_path(torch, D, adj,
+                                            ktrop.step_layout(k, z)[0])),
+          ("ktrop_relax_step path report", what, path.tolist()))
+    paths["list"] += int(path.sum())
+    paths["dense"] += S - int(path.sum())
+
+
+def ktrop_step_cases(torch, np, rng, dev):
+    """``ktrop_relax_step`` on list rows (density 2%, or 1/z where lower)
+    from a mid-relaxation D, on adjacency views 1, 2 or 3 floats
+    off a 16-byte boundary or one row in, with a level of -1e37 (dense:
+    -1e37 + INF < INF may enter at a non-edge) and with negative weights
+    (edges, list); bitwise against the plain step.  Paths by case."""
+    from repro_torch.kernels import ref
+
+    out = {}
+    k = 10
+    for z in (33, 256, 1000):
+        S = 3
+        a = rng.integers(1, 9, (S, z, z)).astype(np.float32)
+        a[rng.random((S, z, z)) > min(0.02, 1.0 / z)] = ref.INF
+        for s in range(S):
+            np.fill_diagonal(a[s], 0.0)
+        adj = torch.from_numpy(a).to(dev)
+        src = torch.from_numpy(rng.integers(0, z, S).astype(np.int32)).to(dev)
+        D = ref.ktrop_solve_ref(adj, src, k, 3)[0]
+        neg_d = D.clone()
+        neg_d[1, 0, 0] = -1e37  # level 0 stays the smallest: ascending
+        neg_w = adj.clone()
+        flip = (neg_w < ref.INF) & (torch.rand(neg_w.shape, device=dev) < 0.3)
+        neg_w[flip] *= -1.0
+        cases = [("aligned", D, adj)]
+        cases += [(f"offset {f}", D, offset_copy(torch, adj, f))
+                  for f in (1, 2, 3, z * z)]
+        cases += [("negative level", neg_d, adj),
+                  ("negative weights", D, neg_w)]
+        for name, d, w in cases:
+            paths = {"list": 0, "dense": 0}
+            check_ktrop_step(torch, d, w, ref.ktrop_relax_ref(d, w),
+                             (name, z), paths)
+            key = f"{name} z={z}"
+            out[key] = paths
+            check(paths == ({"list": S - 1, "dense": 1}
+                            if name == "negative level" else
+                            {"list": S, "dense": 0}),
+                  ("ktrop_relax_step path", key, paths))
+    return out
 
 
 def check_evaluate_refusals(torch, np, rng, dev):
@@ -816,18 +1013,28 @@ def phase_levels(torch, dev, cell):
         f"max_iters=0 (D0, list build, store) {fixed_ms:.3f} ms; D and "
         f"iterations bitwise equal to plain on all {S} rows")
 
-    # --- one relaxation from a mid-relaxation state (ktrop_relax_step)
+    # --- one relaxation from a mid-relaxation state (ktrop_relax_step);
+    # D >= 0 and every column within the slots: the list path is timed
     Dm = ops.ktrop_solve(adj, src, k, 8)
+    slots = ktrop.step_layout(k, z)[0]
+    check(bool(ktrop_step_path(torch, Dm, adj, slots).all()),
+          "levels step inputs fail the list path's checks")
+    _, step_path = ktrop.relax_step(Dm, adj, with_path=True)
+    check(bool(step_path.all()), "levels step rows ran dense")
     step_ms = cuda_ms(torch, lambda: ops.ktrop_relax_step(Dm, adj), repeats=7)
     got = ops.ktrop_relax_step(Dm, adj)
     want, step_plain_ms = timed(
         torch, lambda: chunked(torch, ref.ktrop_relax_ref, S, Dm, adj))
     check(torch.equal(got, want), "ktrop_relax_step differs at levels")
-    step_bound, step_by = bound_ms(adj_bytes + 2 * n_d * 4,
-                                   float(row_ops.sum()))
-    log(f"[levels] ktrop_relax_step: {step_ms:.3f} ms (median of 7), plain "
-        f"{step_plain_ms:.1f} ms, bound {step_bound:.3f} ms ({step_by}), "
-        f"bitwise equal on all {S} rows")
+    step_bytes = adj_bytes + 2 * n_d * 4
+    step_bound, step_by = bound_ms(step_bytes, float(row_ops.sum()))
+    log(f"[levels] ktrop_relax_step: {step_ms:.3f} ms (median of 7), "
+        f"{step_bytes / step_ms / 1e6:.0f} GB/s of the {step_bytes / 1e9:.3f} "
+        f"GB it must move, plain {step_plain_ms:.1f} ms, bound "
+        f"{step_bound:.3f} ms ({step_by}); every row on its in-edge list "
+        f"({ktrop.step_smem(k, z)} B of shared memory per block, "
+        f"{ktrop.step_blocks_per_sm(k, z)} blocks per SM); bitwise equal on "
+        f"all {S} rows")
     return launches, {
         "ktrop_relax_step": dict(ms=step_ms, plain_ms=step_plain_ms,
                                  bound_ms=step_bound, bound_by=step_by,

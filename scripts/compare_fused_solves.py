@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's fused solves and bound_dist from two checkouts on one CUDA
-card, in turns.
+"""Time the port's kernels (fused solves, step kernels, bound_dist) from two
+checkouts on one CUDA card, in turns.
 
     python3 scripts/compare_fused_solves.py --other DIR [--out FILE]
 
@@ -14,14 +14,18 @@ road_inputs``):
 - ``bf_solve_grouped`` at the serving slab shape (S=64, z=96, J in
   {8, 32}; median of 51 launches) and at the refine_dense shape (S=8192,
   z=256, J=32; median of 5);
+- ``bf_relax_step`` at the refine_dense shape (one relaxation of the
+  solve's inputs; median of 7);
 - ``ktrop_solve`` at the levels shape (S=8192, z=256, k=10, at most 48
-  iterations; median of 5);
+  iterations; median of 5) and ``ktrop_relax_step`` there (one
+  relaxation from the solve's state after 8 iterations; median of 7);
 - ``bound_dist`` at the maintain shape (S=122,880, E=2,048, B=4,000,000,
   on ``chip_smoke.maintain_inputs``' profile after the step's sort;
   median of 5).
 
 It prints one JSON line per turn and checks that both checkouts give the
-same bytes for the fused solves (a digest of each output).  ``bound_dist``
+same bytes for the fused solves and the step kernels (a digest of each
+output).  ``bound_dist``
 sums floats, and two of its versions may add in another order: the
 script checks that each checkout gives the same bytes in both of its
 turns and that the two checkouts agree within rtol 2e-5 (each turn's
@@ -84,6 +88,14 @@ def time_checkout(root: Path, keep: Path) -> dict:
         repeats = 51 if S < 1024 else 5
         out["bf_solve_grouped"][name] = chip_smoke.cuda_ms(
             torch, lambda: bf_relax.solve_grouped(*args), repeats)
+        if (S, J, z) == DENSE:  # one relaxation of the same inputs
+            adj, init, _, so, bn, cap = args
+            step = bf_relax.relax_step(init, adj, so, bn, cap)
+            out["digest"][f"bf_step_{name}"] = _digest(step)
+            out["bf_relax_step"] = {name: chip_smoke.cuda_ms(
+                torch, lambda: bf_relax.relax_step(init, adj, so, bn, cap),
+                7)}
+            del adj, init, so, bn, cap, step
         del args, res
     S, _, z = DENSE
     adj = chip_smoke.road_inputs(torch, S, 1, z, dev)[0]
@@ -94,7 +106,11 @@ def time_checkout(root: Path, keep: Path) -> dict:
     out["digest"]["ktrop_levels"] = _digest(res[0], res[1])
     out["ktrop_solve"] = {f"S{S}_k{LEVELS_K}_z{z}": chip_smoke.cuda_ms(
         torch, lambda: ktrop.solve(adj, src, LEVELS_K, LEVELS_ITERS), 5)}
-    del adj, src, res
+    Dm = ktrop.solve(adj, src, LEVELS_K, 8)[0]  # a mid-relaxation state
+    out["digest"]["ktrop_step_levels"] = _digest(ktrop.relax_step(Dm, adj))
+    out["ktrop_relax_step"] = {f"S{S}_k{LEVELS_K}_z{z}": chip_smoke.cuda_ms(
+        torch, lambda: ktrop.relax_step(Dm, adj), 7)}
+    del adj, src, res, Dm
     S, E, B = MAINTAIN
     unit_w, unit_n, sub, phi = chip_smoke.maintain_inputs(torch, S, E, B, dev)
     w_s, n_s, cum_n = dense.sort_profile(unit_w, unit_n)

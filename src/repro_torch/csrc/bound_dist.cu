@@ -77,6 +77,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "row_stage.cuh"
+
 namespace {
 
 // The layout the launcher (kernels/bound_dist.py) mirrors as PER_ITEM,
@@ -133,64 +135,6 @@ __global__ void bd_items_kernel(const int32_t* __restrict__ offsets,
     for (int q = first + 1; q < last; ++q) top = fmaxf(top, phi_sorted[q]);
     items[i] = make_int4(lo, first, last, __float_as_int(top));
   }
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-      smem_addr(bar)));
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// The one arrival of the barrier's phase, which completes once `bytes` of
-// bulk copies have landed.
-__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar,
-                                                   unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "WAIT%=:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra.uni WAIT%=;\n"
-      "}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// A 1-D bulk copy (TMA) of `bytes` (a multiple of 16, both addresses
-// 16-byte aligned) into shared memory, reported to `bar`.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          unsigned bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
 }
 
 // One term of the clip-sum before the stop (c < p): the clamp at 0 is the

@@ -1,7 +1,8 @@
 // Compact in-edge list of one adjacency row, held in shared memory.
 //
 // Shared by the fused fixed-point kernels (bf_solve_grouped in bf_relax.cu,
-// ktrop_solve in ktrop.cu).  A block owns slab row s and iterates a
+// ktrop_solve in ktrop.cu), and built from a staged row by the step
+// kernels (append_in_edges).  A block owns slab row s and iterates a
 // relaxation over adj[s] tens of times.  The row is z*z f32 (256 KiB at
 // z=256) and does not fit in shared memory beside the distance tiles, but a
 // road subgraph's row is about 98% INF (no edge).  So the block reads the
@@ -34,7 +35,12 @@
 // parent epilogue a skipped term (>= INF) can never be the argmin of a
 // reached v, whose kept minimum lies within 1e-6 of dist < INF/2; an
 // unreached v gets -1 either way.  For ktrop a candidate >= INF is never
-// inserted into the k-list, so a skipped entry never changes it.
+// inserted into the k-list, so a skipped entry never changes it.  The
+// argument reads adj only at the skipped entries (adj >= INF, or NaN,
+// whose terms lose every fminf and are never inserted either way): for one
+// relaxation it needs d >= 0 (no NaN) and cap <= INF, which the step
+// kernels check per block; a negative entry is finite and stays in the
+// list.
 
 #pragma once
 
@@ -92,6 +98,44 @@ __device__ __forceinline__ bool build_in_edges(const float* __restrict__ adj_s,
     }
   }
   return !__syncthreads_or(over);
+}
+
+// The same list built from a row staged in shared memory (the step
+// kernels, row_stage.cuh): append the finite entries of column v in the
+// flat range [f0, f1) of the row (entry f = u*z + v at buf[f - f0]) to
+// the list, from source u on, counting them in n.  The ranges are
+// contiguous and ascending, so the column's next entry is u*z + v and its
+// slots stay in ascending u.  Entries past `slots` are counted, not kept.
+__device__ __forceinline__ void append_column(const float* buf, int f0,
+                                              int f1, int z, int slots,
+                                              int scale, InEdgeList list,
+                                              int v, int& u, int& n) {
+  for (int f = u * z + v; f < f1; f += z, ++u) {
+    const float a = buf[f - f0];
+    if (a < IE_INF) {
+      if (n < slots) list.e[n * z + v] = InEdge{u * scale, a};
+      ++n;
+    }
+  }
+}
+
+// append_column for the columns v = tid, tid + blockDim, ... of a block
+// with fewer threads than columns: each column's degree and next source
+// (next_u, [z] in shared memory) kept between ranges, set to 0 by the
+// same thread before the first.  For one u the lanes read consecutive
+// words (no bank conflict).
+__device__ __forceinline__ void append_in_edges(const float* buf, int f0,
+                                                int f1, int z, int slots,
+                                                int scale, InEdgeList list,
+                                                int* next_u) {
+  for (int v = threadIdx.x; v < z; v += blockDim.x) {
+    int u = next_u[v];
+    if (u * z + v >= f1) continue;
+    int n = list.deg[v];
+    append_column(buf, f0, f1, z, slots, scale, list, v, u, n);
+    list.deg[v] = n;
+    next_u[v] = u;
+  }
 }
 
 // Bytes of the list with `slots` per vertex (0 slots: no list at all),

@@ -6,8 +6,9 @@
 //
 //   ktrop_relax_step_kernel  one relaxation with the Pallas contract: for each
 //                            v, the k smallest DISTINCT values among D[s,:,v]
-//                            and D[s,j,u] + adj[s,u,v], INF padded.  Any z;
-//                            k <= 16 (the TPU kernel's own VMEM plan).
+//                            and D[s,j,u] + adj[s,u,v], INF padded.  Any z
+//                            whose D[s] fits in shared memory; k <= 16 (the
+//                            TPU kernel's own VMEM plan).
 //   ktrop_solve_kernel       the whole fixed point of the index build (the
 //                            `levels` cell): D0 from src, relax and change
 //                            test per iteration, at most max_iters
@@ -19,12 +20,23 @@
 // either below INF or is padding (INF, or +inf where INF+INF overflows).
 // Every D the solve produces is ascending.
 //
-// Layout.  Each thread owns one column v and keeps the sorted list of the k
+// Layout.  Each thread owns a column v and keeps the sorted list of the k
 // smallest distinct values seen so far in registers (K is a template
-// parameter, so the list is unrolled).  The step kernel stages D[s] in
-// shared memory as [u][K] tiles through 48 KiB (so it takes any z): for one
-// u every thread of a warp reads the same addresses (a broadcast), and the
-// loop over u reads adj[s,u,v] coalesced across the warp.
+// parameter, so the list is unrolled).  The step kernel's block owns slab
+// row s: it loads D[s] into shared memory as D lies ([K][z]) and checks
+// D >= 0 over it, under which skipping the entries adj >= INF keeps every
+// byte (in_edges.cuh).  Where it holds, the row streams through shared
+// memory in 4 KiB chunks, 3-8 in flight per block (row_stage.cuh; the
+// copies start before D loads), each thread appends the finite entries
+// of its columns to an in-edge list as they land, and then folds its
+// columns' in-edges only: one 2.15 GB read at the levels shape, where one
+// dependent load per (u, v) and thread kept the read latency-bound.  A row
+// that fails the check, or has a column over the list's budget, scans
+// every u of the row from device memory instead (the same fold; one add
+// and one compare per non-edge).  The launcher's `path` output says which.
+// As for bf_relax_step, blocks per SM set its pace on the H100, so the
+// launcher trades list slots above 8 and stages above 3 for blocks
+// (scripts/sweep_step_layouts.py times the alternatives).
 //
 // The fused solve reads its adjacency row from device memory once and keeps
 // the finite entries as a compact in-edge list in shared memory
@@ -71,12 +83,11 @@
 #include <stdint.h>
 
 #include "in_edges.cuh"
+#include "row_stage.cuh"
 
 #define KT_INF 3.0e38f
 
 namespace {
-
-constexpr int kStepSmem = 48 * 1024;  // step kernel's D tile (static limit)
 
 // Insert x (< T[K-1]) into the ascending list T of distinct values; a value
 // already in T is dropped.  INF entries are empty slots.
@@ -103,57 +114,6 @@ __device__ __forceinline__ void fold_own(float (&T)[K], const float* dv,
   }
 }
 
-// Fold the candidates d_sh[uu][j] + adj[u0+uu, v] for uu < un into T.
-template <int K>
-__device__ __forceinline__ void fold_tile(float (&T)[K],
-                                          const float* __restrict__ adj_col,
-                                          int z, const float* d_sh, int u0,
-                                          int un) {
-  for (int uu = 0; uu < un; ++uu) {
-    const float a = __ldg(adj_col + (size_t)(u0 + uu) * z);
-    const float* du = d_sh + uu * K;
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      const float c = __fadd_rn(du[j], a);
-      if (!(c < T[K - 1])) break;  // D ascending: the rest of u is no smaller
-      insert_distinct<K>(T, c);
-    }
-  }
-}
-
-template <int K>
-__global__ void ktrop_relax_step_kernel(const float* __restrict__ D,
-                                        const float* __restrict__ adj,
-                                        float* __restrict__ out, int z,
-                                        int ut) {
-  extern __shared__ __align__(16) float d_sh[];  // [ut][K]
-  const int s = blockIdx.x;
-  const int v = blockIdx.y * blockDim.x + threadIdx.x;
-  const bool live = v < z;
-  const float* D_s = D + (size_t)s * K * z;
-  const float* adj_s = adj + (size_t)s * z * z;
-
-  float T[K];
-#pragma unroll
-  for (int i = 0; i < K; ++i) T[i] = KT_INF;
-  if (live) fold_own<K>(T, D_s + v, z);
-
-  for (int u0 = 0; u0 < z; u0 += ut) {
-    const int un = min(ut, z - u0);
-    __syncthreads();  // the previous tile is consumed
-    for (int i = threadIdx.x; i < un * K; i += blockDim.x) {
-      const int j = i / un, uu = i % un;  // coalesced along u
-      d_sh[uu * K + j] = D_s[(size_t)j * z + u0 + uu];
-    }
-    __syncthreads();
-    if (live) fold_tile<K>(T, adj_s + v, z, d_sh, u0, un);
-  }
-  if (live) {
-#pragma unroll
-    for (int j = 0; j < K; ++j) out[(size_t)s * K * z + (size_t)j * z + v] = T[j];
-  }
-}
-
 // Fold the candidates du[j*stride] + a (the levels of one source u) into T.
 template <int K>
 __device__ __forceinline__ void fold_source(float (&T)[K], const float* du,
@@ -164,6 +124,85 @@ __device__ __forceinline__ void fold_source(float (&T)[K], const float* du,
     if (!(c < T[K - 1])) break;  // D ascending: the rest of u is no smaller
     insert_distinct<K>(T, c);
   }
+}
+
+// At most 256 threads a block; its shared memory sets the blocks per SM
+// (five at the levels shape).
+template <int K>
+__global__ void __launch_bounds__(256) ktrop_relax_step_kernel(
+    const float* __restrict__ D, const float* __restrict__ adj,
+    float* __restrict__ out, int32_t* __restrict__ path_out, int z,
+    int slots, int stages) {
+  extern __shared__ __align__(16) float smem[];
+  const RowStage st = row_stage_at(smem, stages);
+  float* d_sh = smem + row_stage_smem(stages) / 4;  // [K][z]
+  int* next_u = reinterpret_cast<int*>(d_sh + K * z);  // [z]
+  const InEdgeList list(next_u + z, z, slots);
+  const int s = blockIdx.x;
+  const float* D_s = D + (size_t)s * K * z;
+  const float* adj_s = adj + (size_t)s * z * z;
+  const RowPlan plan = row_plan(adj_s, z * z);
+  unsigned uses = 0;
+  if (slots > 0) {  // the row streams in while D loads
+    row_init(st);
+    row_begin(st, plan, uses);
+  }
+
+  // D[s] in shared memory as D lies ([K][z]; each thread its columns, the
+  // K levels unrolled: coalesced, independent loads), and the check under
+  // which the list keeps every byte: D >= 0 (no NaN) over the tile
+  int ok = 1;
+  for (int v = threadIdx.x; v < z; v += blockDim.x) {
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const float d = D_s[(size_t)j * z + v];
+      d_sh[j * z + v] = d;
+      ok &= d >= 0.0f;
+    }
+    next_u[v] = 0;
+    if (slots > 0) list.deg[v] = 0;
+  }
+  bool sparse = __syncthreads_and(ok) && slots > 0;
+  if (sparse) {  // one staged pass: the finite entries into the list
+    if (z <= (int)blockDim.x) {  // a column a thread: its count in registers
+      const int v = threadIdx.x;
+      int u = 0, n = 0;
+      row_stream(st, plan, uses, [&](const float* buf, int f0, int f1) {
+        if (v < z) append_column(buf, f0, f1, z, slots, 1, list, v, u, n);
+      });
+      if (v < z) list.deg[v] = n;
+    } else {
+      row_stream(st, plan, uses, [&](const float* buf, int f0, int f1) {
+        append_in_edges(buf, f0, f1, z, slots, 1, list, next_u);
+      });
+    }
+    int over = 0;
+    for (int v = threadIdx.x; v < z; v += blockDim.x)
+      over |= list.deg[v] > slots;
+    sparse = !__syncthreads_or(over);
+  } else if (slots > 0) {
+    row_drain(st, plan, uses);  // the copies begun above must land first
+  }
+
+  for (int v = threadIdx.x; v < z; v += blockDim.x) {
+    float T[K];
+#pragma unroll
+    for (int i = 0; i < K; ++i) T[i] = KT_INF;
+    fold_own<K>(T, d_sh + v, z);
+    if (sparse) {
+      const int n = list.deg[v];
+      for (int i = 0; i < n; ++i) {
+        const InEdge e = list.e[i * z + v];
+        fold_source<K>(T, d_sh + e.at, z, e.w);
+      }
+    } else {  // every u, adj[s,u,v] read coalesced across the warp
+      for (int u = 0; u < z; ++u)
+        fold_source<K>(T, d_sh + u, z, __ldg(adj_s + (size_t)u * z + v));
+    }
+#pragma unroll
+    for (int j = 0; j < K; ++j) out[(size_t)s * K * z + (size_t)j * z + v] = T[j];
+  }
+  if (threadIdx.x == 0) path_out[s] = sparse;
 }
 
 template <int K>
@@ -234,14 +273,45 @@ int block_threads(int z) {
   return t < 256 ? t : 256;
 }
 
+// The step kernel's shared memory: the staging ring, D[s] [K][z], next
+// sources [z] and the in-edge list.
+size_t step_smem(int k, int z, int slots, int stages) {
+  return row_stage_smem(stages) + (size_t)k * z * 4 + (size_t)z * 4 +
+         in_edges_smem(z, slots);
+}
+
 template <int K>
-cudaError_t launch_step(const float* D, const float* adj, float* out, int S,
-                        int z, cudaStream_t stream) {
-  const int threads = block_threads(z);
-  const int ut = min(z, kStepSmem / (K * 4));
-  dim3 grid(S, (z + threads - 1) / threads);
-  ktrop_relax_step_kernel<K><<<grid, threads, (size_t)ut * K * 4, stream>>>(
-      D, adj, out, z, ut);
+cudaError_t set_step_smem(size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      ktrop_relax_step_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(ktrop_relax_step_kernel<K>,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+template <int K>
+int step_blocks_per_sm(int z, int slots, int stages) {
+  const size_t smem = step_smem(K, z, slots, stages);
+  int blocks = 0;
+  if (set_step_smem<K>(smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, ktrop_relax_step_kernel<K>, block_threads(z), smem) !=
+          cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+template <int K>
+cudaError_t launch_step(const float* D, const float* adj, float* out,
+                        int32_t* path, int S, int z, int slots, int stages,
+                        cudaStream_t stream) {
+  const size_t smem = step_smem(K, z, slots, stages);
+  cudaError_t err = set_step_smem<K>(smem);
+  if (err != cudaSuccess) return err;
+  ktrop_relax_step_kernel<K><<<S, block_threads(z), smem, stream>>>(
+      D, adj, out, path, z, slots, stages);
   return cudaGetLastError();
 }
 
@@ -312,15 +382,37 @@ cudaError_t launch_solve(const float* adj, const int32_t* src, float* D,
 extern "C" {
 
 // All pointers are device pointers to contiguous tensors: D/out [S,k,z] f32,
-// adj [S,z,z] f32.  Returns cudaGetLastError() after the launch (0 =
-// launched).
-int ktrop_relax_step(const void* D, const void* adj, void* out, int S, int k,
-                     int z, void* stream) {
-#define KT_STEP(K_)                                                        \
-  (int)launch_step<K_>((const float*)D, (const float*)adj, (float*)out, S, \
-                       z, (cudaStream_t)stream)
+// adj [S,z,z] f32 (any 4-byte aligned start), path [S] int32 (1 where the
+// row folded its in-edge list, 0 where it scanned every u).  `slots` is the
+// list's slots per vertex (0: every row dense, the row not staged),
+// `stages` the chunks in flight (4 to kRowMaxStages); z*z < 2^31.  Returns
+// cudaGetLastError() after the launch (0 = launched).
+int ktrop_relax_step(const void* D, const void* adj, void* out, void* path,
+                     int S, int k, int z, int slots, int stages,
+                     void* stream) {
+  if (stages < 1 || stages > kRowMaxStages) return (int)cudaErrorInvalidValue;
+#define KT_STEP(K_)                                                         \
+  (int)launch_step<K_>((const float*)D, (const float*)adj, (float*)out,     \
+                       (int32_t*)path, S, z, slots, stages,                 \
+                       (cudaStream_t)stream)
   KT_DISPATCH_K(k, KT_STEP)
 #undef KT_STEP
+}
+
+// Blocks of ktrop_relax_step that one SM holds at once for this k, z and
+// list size (-1 if the query failed).
+int ktrop_step_blocks_per_sm(int k, int z, int slots, int stages) {
+#define KT_SOCC(K_) step_blocks_per_sm<K_>(z, slots, stages)
+  KT_DISPATCH_K(k, KT_SOCC)
+#undef KT_SOCC
+}
+
+// The staged row read's layout (row_stage.cuh): 0 -> most stages, 1 ->
+// floats per chunk, 2 -> bytes of the staging area at one stage; the
+// launcher checks it.
+int ktrop_row_stage(int what) {
+  return what == 0 ? kRowMaxStages
+                   : what == 1 ? kRowChunk : (int)row_stage_smem(1);
 }
 
 // adj [S,z,z] f32; src [S] int32; outputs D [S,k,z] f32, iters [S] int32

@@ -36,6 +36,22 @@ SMEM_LIMIT = 232_448
 #: included, stays far below it
 EDGE_SLOTS = 16
 
+#: the step kernels' staged row read (``csrc/row_stage.cuh``): floats per
+#: chunk (one 1-D bulk copy each), chunks in flight per block (at least
+#: ROW_STAGES, at most ROW_MAX_STAGES) and the bytes before the ring
+ROW_CHUNK = 1024
+ROW_STAGES = 3
+ROW_MAX_STAGES = 8
+ROW_RING = 128
+
+#: in-edge slots per vertex a step block keeps before it trades slots for
+#: blocks per SM (a road subgraph's in-degree, diagonal included, is <= 5)
+STEP_MIN_SLOTS = 8
+
+# shared memory of one SM on sm_90 (228 KiB), and what it keeps per block
+SM_SMEM = 233_472
+SM_SMEM_PER_BLOCK = 1024
+
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -86,6 +102,79 @@ def edge_list_smem(base_smem: int, z: int) -> int:
     alignment."""
     slots = edge_list_slots(base_smem, z)
     return 8 + 4 * z + 8 * slots * z if slots else 0
+
+
+def row_stage_smem(stages: int) -> int:
+    """Shared-memory bytes of the staging area (``row_stage_smem`` in the
+    CUDA header): barriers and head/tail buffer, then the ring of
+    ``stages`` chunks."""
+    return ROW_RING + stages * ROW_CHUNK * 4
+
+
+def step_layout(other, z: int) -> tuple[int, int, int]:
+    """(slots, stages, shared-memory bytes) of a step kernel's block whose
+    arrays beside the ring take ``other(slots)`` bytes.  On the H100 the
+    step kernels' time went with blocks per SM, not with chunks in flight
+    (their tile loads and relaxations overlap only with other blocks), so:
+    slots up to STEP_MIN_SLOTS first, then the most blocks per SM, then
+    the most slots (up to EDGE_SLOTS and z), then the most stages, at
+    least ROW_STAGES.  The bytes exceed SMEM_LIMIT only where nothing fits.
+
+    >>> step_layout(lambda slots: 11_264 + 8 + 4 * 256 + 2048 * slots, 256)
+    (10, 3, 45192)
+    """
+    best = (0, ROW_STAGES, other(0) + row_stage_smem(ROW_STAGES))
+    best_key = None
+    for slots in range(min(EDGE_SLOTS, z) + 1):
+        for stages in range(ROW_STAGES, ROW_MAX_STAGES + 1):
+            smem = other(slots) + row_stage_smem(stages)
+            if smem > SMEM_LIMIT:
+                continue
+            key = (min(slots, STEP_MIN_SLOTS),
+                   SM_SMEM // (smem + SM_SMEM_PER_BLOCK), slots, stages)
+            if best_key is None or key > best_key:
+                best, best_key = (slots, stages, smem), key
+    return best
+
+
+def check_row_size(z: int) -> None:
+    """The step kernels index a row with int: z*z < 2^31."""
+    if z * z >= 2 ** 31:
+        raise ValueError(f"z={z}: the step kernels take z*z < 2^31")
+
+
+def row_stage_plan(z: int, addr: int) -> dict:
+    """How a step kernel's block reads its row of z*z f32 that starts at
+    byte address ``addr`` (``row_plan`` in ``csrc/row_stage.cuh``): the
+    ``head`` floats before the first 16-byte boundary and the ``tail``
+    floats after the last whole 16 bytes by plain loads, the rest as
+    ``chunks`` of (first float, floats), each one bulk copy from a 16-byte
+    aligned address of a multiple of 16 bytes.
+
+    >>> row_stage_plan(33, 4)
+    {'head': 3, 'chunks': [(3, 1024), (1027, 60)], 'tail': 2}
+    """
+    if addr % 4:
+        raise ValueError(f"an f32 row starts on 4 bytes, got address {addr}")
+    n = z * z
+    head = min(n, (-addr % 16) // 4)
+    body = (n - head) // 4 * 4
+    chunks = [(head + at, min(ROW_CHUNK, body - at))
+              for at in range(0, body, ROW_CHUNK)]
+    return {"head": head, "chunks": chunks, "tail": n - head - body}
+
+
+def check_row_stage(lib, prefix: str) -> None:
+    """Raise unless the library's staging layout (``<prefix>_row_stage``)
+    is the one :func:`row_stage_plan` and the shared-memory sums assume."""
+    fn = getattr(lib, f"{prefix}_row_stage")
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    got = tuple(fn(i) for i in range(3))
+    want = (ROW_MAX_STAGES, ROW_CHUNK, row_stage_smem(1))
+    if got != want:
+        raise RuntimeError(f"{prefix}: the CUDA row staging is {got}, the "
+                           f"launcher assumes {want}")
 
 
 def build_all() -> dict:

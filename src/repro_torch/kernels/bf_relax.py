@@ -18,16 +18,35 @@ import functools
 
 import torch
 
-from ._build import (SMEM_LIMIT, check_launch, check_tensor, edge_list_slots,
-                     edge_list_smem, library)
+from ._build import (SMEM_LIMIT, check_launch, check_row_size, check_row_stage,
+                     check_tensor, edge_list_slots, edge_list_smem, library,
+                     row_stage_smem)
+from ._build import step_layout as _step_layout
 
 _TILES = (32, 16, 8, 4, 2, 1)
 
 
+def layout_smem(jt: int, z: int, slots: int, stages: int) -> int:
+    """Shared-memory bytes of one ``bf_relax_step`` block with this list
+    and ring (``step_smem`` in the CUDA source): the staging ring, the
+    [z][jt+1] distance tile, spur and ban words, next sources, caps and
+    the in-edge list."""
+    pitch = jt + 1 if jt > 1 else 1
+    return (row_stage_smem(stages) + z * pitch * 4 + 3 * z * 4 + jt * 4
+            + (8 + 4 * z + 8 * slots * z if slots else 0))
+
+
+@functools.cache
+def step_layout(jt: int, z: int) -> tuple[int, int, int]:
+    """(slots, stages, shared-memory bytes) of one ``bf_relax_step`` block
+    (``_build.step_layout``).  Slots 0: every block dense."""
+    ring = row_stage_smem(0)
+    return _step_layout(lambda slots: layout_smem(jt, z, slots, 0) - ring, z)
+
+
 def step_smem(jt: int, z: int) -> int:
-    """Shared-memory bytes of one ``bf_relax_step`` block (mirrors the
-    CUDA source): the [z][jt] distance tile, spur words, caps."""
-    return z * jt * 4 + z * 4 + jt * 4
+    """Shared-memory bytes of one ``bf_relax_step`` block."""
+    return step_layout(jt, z)[2]
 
 
 def tile_smem(jt: int, z: int) -> int:
@@ -70,8 +89,11 @@ def tile_width(J: int, z: int, smem) -> int:
 def _lib():
     lib = library("bf_relax")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.bf_relax_step.argtypes = [P] * 6 + [I] * 4 + [P]
+    check_row_stage(lib, "bf")
+    lib.bf_relax_step.argtypes = [P] * 7 + [I] * 6 + [P]
     lib.bf_relax_step.restype = I
+    lib.bf_step_blocks_per_sm.argtypes = [I] * 4
+    lib.bf_step_blocks_per_sm.restype = I
     lib.bf_solve_grouped.argtypes = [P] * 10 + [I] * 6 + [P]
     lib.bf_solve_grouped.restype = I
     lib.bf_solve_blocks_per_sm.argtypes = [I] * 3
@@ -87,29 +109,46 @@ def solve_blocks_per_sm(J: int, z: int) -> int:
         z, jt, edge_list_slots(tile_smem(jt, z), z))
 
 
-def relax_step(dist, adj, spur_onehot, banned_next, cap):
+def step_blocks_per_sm(J: int, z: int) -> int:
+    """Blocks of ``bf_relax_step`` one SM of the current card holds at
+    once at this J and z (the CUDA occupancy query)."""
+    jt = tile_width(J, z, step_smem)
+    slots, stages, _ = step_layout(jt, z)
+    return _lib().bf_step_blocks_per_sm(z, jt, slots, stages)
+
+
+def relax_step(dist, adj, spur_onehot, banned_next, cap,
+               with_path: bool = False):
     """Launch ``bf_relax_step``: one masked relaxation, the Pallas
     ``bf_relax`` contract.  dist [S,J,z] f32, adj [S,z,z] f32,
-    spur_onehot/banned_next [S,J,z] bool, cap [S,J] f32 → [S,J,z] f32."""
+    spur_onehot/banned_next [S,J,z] bool, cap [S,J] f32 → [S,J,z] f32;
+    ``with_path`` adds path [S, ceil(J/jt)] int32: 1 where the block
+    relaxed from its in-edge list (every distance ≥ 0, every cap ≤ INF
+    and every column within the list's slots), 0 where it ran the dense
+    scan.  Both give the plain version's bytes."""
     S, J, z = dist.shape
     dev = dist.device
+    check_row_size(z)
     check_tensor("dist", dist, torch.float32, (S, J, z), dev)
     check_tensor("adj", adj, torch.float32, (S, z, z), dev)
     check_tensor("spur_onehot", spur_onehot, torch.bool, (S, J, z), dev)
     check_tensor("banned_next", banned_next, torch.bool, (S, J, z), dev)
     check_tensor("cap", cap, torch.float32, (S, J), dev)
     out = torch.empty_like(dist)
+    jt = tile_width(J, z, step_smem) if z else 1
+    path = torch.empty((S, -(-J // jt)), dtype=torch.int32, device=dev)
     if S == 0 or J == 0 or z == 0:
-        return out
-    jt = tile_width(J, z, step_smem)
+        return (out, path) if with_path else out
+    slots, stages, _ = step_layout(jt, z)
     with torch.cuda.device(dev):
         err = _lib().bf_relax_step(
             dist.data_ptr(), adj.data_ptr(), spur_onehot.data_ptr(),
             banned_next.data_ptr(), cap.data_ptr(), out.data_ptr(),
-            S, J, z, jt, torch.cuda.current_stream(dev).cuda_stream,
+            path.data_ptr(), S, J, z, jt, slots, stages,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     check_launch(err, "bf_relax_step")
-    return out
+    return (out, path) if with_path else out
 
 
 def solve_grouped(adj, init, banned_v, spur_onehot, banned_next, cap,

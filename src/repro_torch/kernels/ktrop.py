@@ -16,8 +16,10 @@ import functools
 
 import torch
 
-from ._build import (SMEM_LIMIT, check_launch, check_tensor, edge_list_slots,
-                     edge_list_smem, library)
+from ._build import (SMEM_LIMIT, check_launch, check_row_size, check_row_stage,
+                     check_tensor, edge_list_slots, edge_list_smem, library,
+                     row_stage_smem)
+from ._build import step_layout as _step_layout
 
 K_MAX = 16  # levels a thread keeps in registers (the TPU kernel's own plan)
 
@@ -31,6 +33,28 @@ def solve_smem(k: int, z: int) -> int:
     return base + edge_list_smem(base, z)
 
 
+def layout_smem(k: int, z: int, slots: int, stages: int) -> int:
+    """Shared-memory bytes of one ``ktrop_relax_step`` block with this list
+    and ring (``step_smem`` in the CUDA source): the staging ring, D[s] as
+    [k][z] f32, next sources and the in-edge list."""
+    return (row_stage_smem(stages) + k * z * 4 + z * 4
+            + (8 + 4 * z + 8 * slots * z if slots else 0))
+
+
+@functools.cache
+def step_layout(k: int, z: int) -> tuple[int, int, int]:
+    """(slots, stages, shared-memory bytes) of one ``ktrop_relax_step``
+    block (``_build.step_layout``).  Slots 0: every row scans the dense
+    row."""
+    ring = row_stage_smem(0)
+    return _step_layout(lambda slots: layout_smem(k, z, slots, 0) - ring, z)
+
+
+def step_smem(k: int, z: int) -> int:
+    """Shared-memory bytes of one ``ktrop_relax_step`` block."""
+    return step_layout(k, z)[2]
+
+
 def _check_k(k: int) -> None:
     if not 1 <= k <= K_MAX:
         raise ValueError(f"the ktrop kernels take 1 <= k <= {K_MAX}, got {k}")
@@ -40,8 +64,11 @@ def _check_k(k: int) -> None:
 def _lib():
     lib = library("ktrop")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.ktrop_relax_step.argtypes = [P] * 3 + [I] * 3 + [P]
+    check_row_stage(lib, "ktrop")
+    lib.ktrop_relax_step.argtypes = [P] * 4 + [I] * 5 + [P]
     lib.ktrop_relax_step.restype = I
+    lib.ktrop_step_blocks_per_sm.argtypes = [I] * 4
+    lib.ktrop_step_blocks_per_sm.restype = I
     lib.ktrop_solve.argtypes = [P] * 5 + [I] * 5 + [P]
     lib.ktrop_solve.restype = I
     lib.ktrop_solve_blocks_per_sm.argtypes = [I] * 3
@@ -57,24 +84,43 @@ def solve_blocks_per_sm(k: int, z: int) -> int:
         k, z, edge_list_slots(2 * k * z * 4, z))
 
 
-def relax_step(D, adj):
+def step_blocks_per_sm(k: int, z: int) -> int:
+    """Blocks of ``ktrop_relax_step`` one SM of the current card holds at
+    once at this k and z (the CUDA occupancy query)."""
+    _check_k(k)
+    slots, stages, _ = step_layout(k, z)
+    return _lib().ktrop_step_blocks_per_sm(k, z, slots, stages)
+
+
+def relax_step(D, adj, with_path: bool = False):
     """Launch ``ktrop_relax_step``: one k-distinct relaxation, the Pallas
-    ``ktrop_relax`` contract at any z.  D [S,k,z] f32 ascending along k,
-    adj [S,z,z] f32 → [S,k,z] f32."""
+    ``ktrop_relax`` contract at any z whose D[s] fits in shared memory.
+    D [S,k,z] f32 ascending along k, adj [S,z,z] f32 → [S,k,z] f32;
+    ``with_path`` adds path [S] int32: 1 where the row folded its
+    in-edge list (D[s] ≥ 0 and every column within the list's slots), 0
+    where it scanned every u.  Both give the plain version's bytes."""
     S, k, z = D.shape
     dev = D.device
     _check_k(k)
+    check_row_size(z)
+    if step_smem(k, z) > SMEM_LIMIT:
+        raise ValueError(f"ktrop_relax_step keeps D[s] in shared memory: "
+                         f"k={k}, z={z} needs more than a block has "
+                         f"({SMEM_LIMIT} bytes)")
     check_tensor("D", D, torch.float32, (S, k, z), dev)
     check_tensor("adj", adj, torch.float32, (S, z, z), dev)
     out = torch.empty_like(D)
+    path = torch.empty((S,), dtype=torch.int32, device=dev)
     if S == 0 or z == 0:
-        return out
+        return (out, path) if with_path else out
+    slots, stages, _ = step_layout(k, z)
     with torch.cuda.device(dev):
         err = _lib().ktrop_relax_step(
-            D.data_ptr(), adj.data_ptr(), out.data_ptr(), S, k, z,
+            D.data_ptr(), adj.data_ptr(), out.data_ptr(), path.data_ptr(),
+            S, k, z, slots, stages,
             torch.cuda.current_stream(dev).cuda_stream)
     check_launch(err, "ktrop_relax_step")
-    return out
+    return (out, path) if with_path else out
 
 
 def solve(adj, src, k: int, max_iters: int | None = None):

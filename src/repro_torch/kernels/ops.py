@@ -37,7 +37,12 @@ def _on_cpu(t: torch.Tensor) -> bool:
 def bf_relax_step(dist, adj, spur_onehot, banned_next, cap=None):
     """One fused masked BF relaxation (the Pallas ``bf_relax`` contract):
     dist [S,J,z], adj [S,z,z], spur_onehot/banned_next [S,J,z] 0/1 masks
-    (any dtype; nonzero = set), cap [S,J] (default INF) → [S,J,z] f32."""
+    (any dtype; nonzero = set), cap [S,J] (default INF) → [S,J,z] f32.
+
+    On the card a block whose distances are all ≥ 0 and whose caps are
+    all ≤ INF relaxes only the row's finite entries, from a list built as
+    the row streams in; any other block scans every entry.  Both give
+    the plain version's bytes (``csrc/in_edges.cuh``)."""
     S, J, _ = dist.shape
     if cap is None:
         cap = torch.full((S, J), INF, dtype=torch.float32, device=dist.device)
@@ -84,7 +89,11 @@ def bf_solve_grouped(adj, init, banned_v, spur_onehot, banned_next, cap,
 def ktrop_relax_step(D, adj):
     """One k-distinct tropical relaxation (the Pallas ``ktrop_relax``
     contract at any z): D [S,k,z] ascending along k, adj [S,z,z] → new D
-    [S,k,z] f32.  k ≤ 16 on the card."""
+    [S,k,z] f32.  k ≤ 16 on the card, and D[s] must fit in a block's
+    shared memory (z up to about 3,000 at k = 16).  A row with D[s] ≥ 0
+    folds only its finite entries, from a list built as the row streams
+    in; any other row scans every u; both give the plain version's
+    bytes."""
     args = (D.float().contiguous(), adj.float().contiguous())
     if _on_cpu(D):
         return ref.ktrop_relax_ref(*args)
