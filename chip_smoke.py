@@ -19,25 +19,45 @@ phase that does not hold:
    ``bf_relax_step`` also on adjacency views that start off a 16-byte
    boundary and on inputs that fail each of its checks (a negative
    distance, cap = +inf, a NaN cap) or that need none (negative
-   weights, +inf distances);
+   weights, +inf distances), here also at the serving slab shapes
+   (S=64, z=96, J in {8, 32}); ``bf_solve_grouped`` on inputs that fail
+   its checks (+inf distances under caps of +inf, an initial distance
+   or an edge weight of -1e37, a NaN cap), dense where they fail;
 4. the fused solve at the refine_dense shape (S=8192 slab rows, z=256,
    J=32) on road-like adjacency with Yen-style masks and finite caps:
    both kernels against their plain versions on every row, bitwise, and
    timed with CUDA events beside their bounds, every block on its list;
    the refine_dense cell's step (capped at 64 iterations) gives the same
    bytes; then the fused solve at the serving slab shape (S=64, z=96,
-   J in {8, 32}), bitwise and timed;
+   J in {8, 32}), bitwise and timed, and there also ``bf_relax_step``
+   and the parent epilogue (``max_iters=0``) bitwise against their plain
+   versions;
 5. serving: ``KSPService(engine="cuda_bf", device="cuda")`` answers 32
    queries (trips of 8-16 hops), one UpdateBatch, and 32 more on a
    64x64 road grid; the same trace on the port's plain ``dense_bf``
    engine must give the same (paths, epoch), a few answers must match
    host Yen on the full graph, and the serving run must have launched
-   ``bf_solve_grouped``;
+   ``bf_solve_grouped`` (the DTLP index is built once; each service
+   serves its own copy);
+   then the multi-device path: ``shard_refine.make_refine_fn`` with
+   ``CudaBackend`` at the refine_dense shape on a 1-shard mesh of the
+   card and on 2 logical shards of it, bitwise the fused solve, with
+   its global iterations, launches and wall time beside the fused
+   solve's, and the epilogue (``max_iters=0``) returning a converged
+   field unchanged; the same trace served on ``cuda_bf`` over a 1-shard
+   mesh, barrier and streaming, equal to the non-mesh answers, with
+   ``bf_relax_step`` launched and (streaming) each launch bitwise equal
+   to the plain step on its inputs and its per-block path report as the
+   data dictates; and the driver
+   ``python -m repro_torch.launch.serve --engine cuda_bf --mesh`` (a
+   10x10 grid, a worker killed and revived) ending in "serving run
+   complete" with no EMPTY line;
 6. index kernels at ragged shapes: ``ktrop_relax_step`` and
    ``ktrop_solve`` bitwise against their plain versions at z in
    {1, 33, 96, 200, 256}, densities 30% and 2%, k in {1, 2, 10, 16}, and
    both at z=1000, 30% (over the list's budget, dense) and 0.4%, with
-   their path reports checked as in 3; ``ktrop_relax_step`` also on
+   their path reports checked as in 3; ``ktrop_solve`` with an edge
+   weight of -1e37 (its row dense); ``ktrop_relax_step`` also on
    offset views, a negative level (dense) and negative weights (list);
    ``bound_dist`` bitwise against ``bound_dist_seq_ref`` (the sum in the
    kernel's order) and within rtol 2e-5 of ``bound_dist_ref``, its
@@ -71,6 +91,8 @@ kernels JSON, the nvidia-smi name/power-limit line, and the ok JSON.
 from __future__ import annotations
 
 import json
+import os
+import pickle
 import re
 import statistics
 import subprocess
@@ -229,6 +251,27 @@ def list_expected(torch, adj, slots):
         torch.zeros(adj.shape[0], dtype=torch.bool, device=adj.device)
 
 
+def solve_path(torch, adj, slots, init=None, banned_v=None, cap=None,
+               jt=None):
+    """The loop each fused-solve block must run: its in-edge list (1)
+    where every column of the row is within the list's slots and every
+    kept weight is >= 0 and, for BF (``init`` given; blocks of ``jt``
+    problems), every initial distance after the banned-vertex mask is
+    >= 0 and every cap <= INF (no NaN); else the dense loop (0).  BF
+    [S, ceil(J/jt)], ktrop [S]."""
+    from repro_torch.kernels.ref import INF
+
+    ok = list_expected(torch, adj, slots) & ~(
+        (adj < INF) & (adj < 0)).flatten(1).any(dim=1)
+    if init is None:
+        return ok.int()
+    d0 = torch.where(banned_v, INF, init)
+    good = (d0 >= 0).all(dim=2) & (cap <= INF)
+    J = init.shape[1]
+    return torch.stack([good[:, j0:j0 + jt].all(dim=1) & ok
+                        for j0 in range(0, J, jt)], dim=1).int()
+
+
 def bf_step_path(torch, dist, cap, adj, jt, slots):
     """The path each ``bf_relax_step`` block must take [S, ceil(J/jt)]:
     its in-edge list (1) where its distances are all >= 0, its caps all
@@ -346,8 +389,8 @@ def phase_ragged(torch, np, dev):
             check(torch.equal(ld, d) and torch.equal(lp, p)
                   and torch.equal(lit.amax(dim=1), wit),
                   ("bf_solve_grouped iterations per row", what))
-            check(torch.equal(used.bool(), list_expected(torch, adj, slots)
-                              [:, None].expand_as(used)),
+            check(torch.equal(used, solve_path(torch, adj, slots, init, bv,
+                                               cap, jt)),
                   ("bf_solve_grouped loop report", what))
             if z == 1000 and density == 0.3:
                 check(not used.any(), "z=1000 at 30% ran the in-edge list")
@@ -375,6 +418,61 @@ def phase_ragged(torch, np, dev):
         f"block must take, on adjacency views off a 16-byte boundary and "
         f"inputs that fail or need no check: " + "; ".join(
             f"{name} {paths}" for name, paths in cases.items()))
+    cases = bf_solve_cases(torch, np, rng, dev)
+    torch.cuda.synchronize()
+    log(f"[ragged] bf_solve_grouped (dist, parents and iterations per row) "
+        f"bitwise equal to plain, with the loop each block must run, on "
+        f"inputs that fail the list's checks: " + "; ".join(
+            f"{name} {loops}" for name, loops in cases.items()))
+
+
+def bf_solve_cases(torch, np, rng, dev):
+    """``bf_solve_grouped`` on list rows (density 2%, or 1/z where lower)
+    with one of the list's preconditions broken: every INF initial
+    distance +inf under caps of +inf (every block dense, by its cap
+    check); one initial distance of -1e37 (its block dense); one edge
+    weight of -1e37 out of a source (its row's blocks dense: a negative
+    distance mid-solve makes d + INF < INF); a NaN cap (its block dense).
+    Bitwise against the plain solve, with the loop each block must run.
+    Returns the loops by case."""
+    from repro_torch.kernels import _build, bf_relax, ref
+
+    out = {}
+    for S, J, z in ((2, 3, 24), (2, 33, 97), (3, 8, 256)):
+        args = [torch.from_numpy(a).to(dev) for a in ragged_inputs(
+            np, rng, S, J, z, True, min(0.02, 1.0 / z))]
+        adj, init, bv, so, bn, cap = args
+        jt = bf_relax.tile_width(J, z, bf_relax.solve_smem)
+        slots = _build.edge_list_slots(bf_relax.tile_smem(jt, z), z)
+        inf_d, inf_cap = init.clone(), cap.clone()
+        inf_d[inf_d >= ref.INF] = float("inf")
+        inf_cap[:] = float("inf")
+        neg_d, no_bv = init.clone(), bv.clone()
+        neg_d[1, 0, 1] = -1e37
+        no_bv[1, 0, 1] = False
+        neg_w = adj.clone()
+        src = int(init[1, 0].argmin())  # the closest vertex: a source
+        neg_w[1, src, (src + 1) % z] = -1e37
+        nan_cap = cap.clone()
+        nan_cap[0, J - 1] = float("nan")
+        cases = [("+inf distances, cap +inf", adj, inf_d, bv, inf_cap),
+                 ("-1e37 distance", adj, neg_d, no_bv, cap),
+                 ("-1e37 weight", neg_w, init, bv, cap),
+                 ("NaN cap", adj, init, bv, nan_cap)]
+        for name, a, d0, b, c in cases:
+            full = (a, d0, b, so, bn, c)
+            d, p, it, used = bf_relax.solve_grouped(*full)
+            wd, wp, wit = ref.bf_solve_grouped_ref(*full, with_iters=True)
+            key = f"{name} (S,J,z)={(S, J, z)}"
+            check(torch.equal(d, wd) and torch.equal(p, wp)
+                  and torch.equal(it.amax(dim=1), wit),
+                  ("bf_solve_grouped", key))
+            want = solve_path(torch, a, slots, d0, b, c, jt)
+            check(torch.equal(used, want) and not bool(want.all()),
+                  ("bf_solve_grouped loop report", key, used.tolist()))
+            n_list = int(used.sum())
+            out[key] = {"list": n_list, "dense": used.numel() - n_list}
+    return out
 
 
 def check_bf_step(torch, dist, adj, so, bn, cap, want, what, paths):
@@ -405,7 +503,8 @@ def bf_step_cases(torch, np, rng, dev):
     from repro_torch.kernels import ref
 
     out = {}
-    for S, J, z in ((2, 33, 97), (3, 8, 256), (2, 5, 1000)):
+    for S, J, z in ((2, 33, 97), (3, 8, 256), (2, 5, 1000), (64, 8, 96),
+                    (64, 32, 96)):
         adj, init, _, so, bn, cap = (torch.from_numpy(a).to(dev) for a in
                                      ragged_inputs(np, rng, S, J, z, True,
                                                    min(0.02, 1.0 / z)))
@@ -547,6 +646,7 @@ def phase_refine_dense(torch, dev, cell):
                               max_abs_err=step_err),
         "bf_solve_grouped": dict(ms=solve_ms, plain_ms=solve_plain_ms,
                                  bound_ms=solve_bound, bound_by=solve_by,
+                                 epilogue_ms=fixed_ms,
                                  max_abs_err=max_abs_err(torch, dist, want_d),
                                  list_blocks=int(used.sum()),
                                  dense_blocks=int(used.numel() - used.sum())),
@@ -556,25 +656,50 @@ def phase_refine_dense(torch, dev, cell):
 def phase_serving_shape(torch, dev):
     """``bf_solve_grouped`` at the serving slab shape (S=64 rows, z=96) on
     road-like rows, J in {8, 32}: bitwise against the plain version and
-    timed (median of 21 CUDA-event timings of one launch)."""
+    timed (median of 21 CUDA-event timings of one launch).  At the same
+    shapes, the two other calls mesh serving makes: ``bf_relax_step``
+    (bitwise against the plain step, on its list path) and the parent
+    epilogue ``bf_solve_grouped(..., max_iters=0)`` (bitwise against its
+    plain version on a field 3 relaxations in and on the converged field,
+    where it returns that field and its parents unchanged)."""
     from repro_torch.kernels import bf_relax, ops, ref
 
     times = {}
     for J in (8, 32):
         args = road_inputs(torch, 64, J, 96, dev)
+        adj, init, bv, so, bn, cap = args
         d, p, it, used = bf_relax.solve_grouped(*args)
         wd, wp, wit = ref.bf_solve_grouped_ref(*args, with_iters=True)
         check(torch.equal(d, wd) and torch.equal(p, wp)
               and torch.equal(it.amax(dim=1), wit),
               ("bf_solve_grouped at the serving shape", J))
         check(bool(used.all()), ("serving-shape blocks ran the dense loop", J))
+        step_paths = {"list": 0, "dense": 0}
+        check_bf_step(torch, init, adj, so, bn, cap,
+                      ref.bf_relax_ref(init, adj, so, bn, cap),
+                      ("serving shape", J), step_paths)
+        check(step_paths["dense"] == 0,
+              ("serving-shape step blocks ran dense", J, step_paths))
+        mid = ref.bf_solve_grouped_ref(*args, max_iters=3)[0]
+        for name, field in (("mid-solve", mid), ("converged", wd)):
+            ed, ep = ops.bf_solve_grouped(adj, field, bv, so, bn, cap,
+                                          max_iters=0)
+            pd, pp = ref.bf_solve_grouped_ref(adj, field, bv, so, bn, cap,
+                                              max_iters=0)
+            check(torch.equal(ed, pd) and torch.equal(ep, pp),
+                  ("max_iters=0 differs from plain", name, J))
+        check(torch.equal(ed, wd) and torch.equal(ep, wp),
+              ("max_iters=0 changed a converged field or its parents", J))
         ms = cuda_ms(torch, lambda: ops.bf_solve_grouped(*args), repeats=21)
         times[f"S64_J{J}_z96"] = ms
         log(f"[serving-shape] bf_solve_grouped S=64 J={J} z=96: {ms:.4f} ms "
             f"(median of 21), {bf_relax.solve_blocks_per_sm(J, 96)} blocks "
             f"per SM, iterations per block max {int(it.max())}, "
             f"in-edge list on all {used.numel()} blocks, bitwise equal to "
-            f"plain")
+            f"plain; bf_relax_step bitwise equal to plain with its "
+            f"{step_paths['list']} blocks on the list; the epilogue "
+            f"(max_iters=0) bitwise equal to plain on a field 3 relaxations "
+            f"in and on the converged field, the converged one unchanged")
     return times
 
 
@@ -604,60 +729,85 @@ def local_trips(np, g, n, rng, lo=8, hi=16):
     return out
 
 
-def build_service(engine):
-    """A fresh 64x64 road grid, its DTLP index (z=32, xi=4) and a
-    4-worker service on the card."""
+_INDEX = {}
+
+
+def build_service(engine, mesh=None, update_mode="barrier"):
+    """A fresh copy of the 64x64 road grid's DTLP index (z=32, xi=4) and
+    a 4-worker service on the card (on ``mesh`` if given).  The index is
+    built once (tens of seconds of host work) and each service gets its
+    own copy, unpickled from the bytes of the first build, since serving
+    an update changes the index."""
     from repro_torch.core.dtlp import DTLP
     from repro_torch.data.roadnet import grid_road_network
     from repro_torch.service import KSPService, ServiceConfig
 
-    g = grid_road_network(64, 64, seed=SEED)
-    t0 = time.perf_counter()
-    d = DTLP.build(g, z=32, xi=4)
-    build_s = time.perf_counter() - t0
+    if not _INDEX:
+        t0 = time.perf_counter()
+        d = DTLP.build(grid_road_network(64, 64, seed=SEED), z=32, xi=4)
+        _INDEX["build_s"] = time.perf_counter() - t0
+        _INDEX["bytes"] = pickle.dumps(d, protocol=pickle.HIGHEST_PROTOCOL)
+    d = pickle.loads(_INDEX["bytes"])
     svc = KSPService(d, ServiceConfig(engine=engine, n_workers=4,
-                                      device="cuda", max_in_flight=8))
-    return svc, build_s, g
+                                      device="cuda", max_in_flight=8,
+                                      mesh=mesh, update_mode=update_mode))
+    return svc, _INDEX["build_s"], d.graph
+
+
+def serving_trace(np):
+    """The serving trace: 64 trips of 8-16 hops on the 64x64 grid and one
+    traffic update, 5% of the edges moving by up to +-50% of their
+    initial weight.  (At the stream's default of 50% of the edges the
+    DTLP bounds drift so far that some queries need hundreds of KSP-DG
+    iterations of host work; ROADMAP queue 1, item 11.)"""
+    from repro_torch.data.roadnet import WeightUpdateStream, grid_road_network
+
+    g0 = grid_road_network(64, 64, seed=SEED)
+    queries = local_trips(np, g0, 64, np.random.default_rng(SEED))
+    batch = WeightUpdateStream(g0, alpha=0.05, tau=0.5,
+                               seed=SEED).next_batch()
+    return g0, queries, batch
+
+
+def serve(torch, np, engine, queries, batch, mesh=None,
+          update_mode="barrier", label=None):
+    """Serve 32 queries, the update, 32 queries; the launch counts are
+    set to 0 just before and read just after.  Returns (service,
+    [(paths, epoch)], launches, stats)."""
+    from repro_torch.kernels import ops
+    from repro_torch.service import QueryRequest, UpdateBatch
+
+    svc, build_s, g = build_service(engine, mesh, update_mode)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    tickets = svc.replay([QueryRequest(s, t, 3) for s, t in queries[:32]])
+    svc.update(UpdateBatch(*batch))
+    tickets += svc.replay([QueryRequest(s, t, 3) for s, t in queries[32:]])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    answers = [(tk.result.paths, tk.result.epoch) for tk in tickets]
+    lat = sorted(tk.result.latency_ms for tk in tickets)
+    slabs = [tuple(w.slab.adj.shape) for w in svc.cluster.workers
+             if w.slab is not None]
+    stats = dict(wall_s=wall, qps=len(tickets) / wall,
+                 p50_ms=float(np.percentile(lat, 50)),
+                 p99_ms=float(np.percentile(lat, 99)))
+    log(f"[serving] {label or engine}: grid {g.n} vertices {g.m} edges, "
+        f"DTLP build {build_s:.1f} s (once), slabs {slabs}; {len(tickets)} "
+        f"queries + 1 update in {wall:.2f} s = {stats['qps']:.2f} qps, "
+        f"latency p50 {stats['p50_ms']:.1f} ms p99 {stats['p99_ms']:.1f} "
+        f"ms; launches {launches}")
+    return svc, answers, launches, stats
 
 
 def phase_serving(torch, np):
     from repro_torch.core.sssp import graph_view
     from repro_torch.core.yen import ksp
-    from repro_torch.data.roadnet import WeightUpdateStream, grid_road_network
-    from repro_torch.kernels import ops
-    from repro_torch.service import QueryRequest, UpdateBatch
 
-    g0 = grid_road_network(64, 64, seed=SEED)
-    queries = local_trips(np, g0, 64, np.random.default_rng(SEED))
-    # one traffic update: 5% of the edges move by up to +-50% of their
-    # initial weight.  (At the stream's default of 50% of the edges the
-    # DTLP bounds drift so far that some queries need hundreds of KSP-DG
-    # iterations of host work; ROADMAP queue 1, item 11.)
-    batch = WeightUpdateStream(g0, alpha=0.05, tau=0.5,
-                               seed=SEED).next_batch()
-
-    def serve(engine):
-        svc, build_s, g = build_service(engine)
-        ops.reset_launches()
-        t0 = time.perf_counter()
-        tickets = svc.replay([QueryRequest(s, t, 3) for s, t in queries[:32]])
-        svc.update(UpdateBatch(*batch))
-        tickets += svc.replay([QueryRequest(s, t, 3) for s, t in queries[32:]])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(ops.LAUNCHES)
-        answers = [(tk.result.paths, tk.result.epoch) for tk in tickets]
-        lat = sorted(tk.result.latency_ms for tk in tickets)
-        slabs = [tuple(w.slab.adj.shape) for w in svc.cluster.workers
-                 if w.slab is not None]
-        log(f"[serving] {engine}: grid {g.n} vertices {g.m} edges, DTLP "
-            f"build {build_s:.1f} s, slabs {slabs}; {len(tickets)} queries + "
-            f"1 update in {wall:.2f} s = {len(tickets) / wall:.2f} qps, "
-            f"latency p50 {np.percentile(lat, 50):.1f} ms p99 "
-            f"{np.percentile(lat, 99):.1f} ms; launches {launches}")
-        return svc, answers, launches
-
-    svc, answers, launches = serve("cuda_bf")
+    g0, queries, batch = serving_trace(np)
+    svc, answers, launches, stats = serve(torch, np, "cuda_bf", queries,
+                                          batch)
     check(launches["bf_solve_grouped"] > 0, "serving never launched the kernel")
     check([e for _, e in answers] == [0] * 32 + [1] * 32,
           "results not stamped epoch 0 before the update and 1 after")
@@ -677,13 +827,198 @@ def phase_serving(torch, np):
     log(f"[serving] cuda_bf answers equal host Yen on {len(checks)} queries "
         "(4 per epoch)")
 
-    _, plain_answers, plain_launches = serve("dense_bf")
+    _, plain_answers, plain_launches, _ = serve(torch, np, "dense_bf",
+                                                queries, batch)
     check(plain_answers == answers, "cuda_bf and dense_bf answers differ")
     check(plain_launches["bf_solve_grouped"] == 0,
           "the plain engine launched the kernel")
     log("[serving] cuda_bf (paths, epoch) equal the plain dense_bf engine's "
         "on all 64 queries")
-    return launches
+    return launches, answers, stats
+
+
+def phase_mesh_refine(torch, dev, fused):
+    """``make_refine_fn`` with ``CudaBackend`` at the refine_dense shape,
+    on a 1-shard mesh of the card and on 2 logical shards of it: dist and
+    parents bitwise the fused ``bf_solve_grouped``'s, the global iteration
+    count the largest of the fused solve's per-block counts, and the
+    epilogue (``max_iters=0``) returns a converged field unchanged."""
+    from repro_torch.dist.shard_refine import make_refine_fn
+    from repro_torch.engine.backend import CudaBackend
+    from repro_torch.kernels import bf_relax, ops
+    from repro_torch.launch.mesh import make_host_mesh
+
+    S, J, z = DENSE_S, DENSE_J, DENSE_Z
+    args = road_inputs(torch, S, J, z, dev)
+    want_d, want_p, iters, _ = bf_relax.solve_grouped(*args)
+    d0, p0 = ops.bf_solve_grouped(args[0], want_d, *args[2:], max_iters=0)
+    check(torch.equal(d0, want_d) and torch.equal(p0, want_p),
+          "max_iters=0 changed a converged field or its parents")
+    global_iters = int(iters.max())
+    out = {}
+    for n in (1, 2):
+        mesh = make_host_mesh(device=[dev] * n)
+        refine = make_refine_fn(mesh, backend=CudaBackend())
+        walls = []
+        for _ in range(3):
+            ops.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            d, p = refine(*args)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            launches = dict(ops.LAUNCHES)
+            check(torch.equal(d, want_d) and torch.equal(p, want_p),
+                  ("mesh refine differs from the fused solve", n))
+        check(launches["bf_relax_step"] == n * global_iters
+              and launches["bf_solve_grouped"] == n,
+              ("mesh refine iterations", n, launches, global_iters))
+        wall = statistics.median(walls)
+        out[f"{n}_shard"] = dict(wall_ms=wall, iterations=global_iters,
+                                 launches=launches)
+        log(f"[mesh-refine] {n} shard(s) on {dev}: S={S} J={J} z={z}, "
+            f"{global_iters} global iterations, launches {launches}, wall "
+            f"{wall:.3f} ms (median of 3, host clock, one flag read per "
+            f"iteration); dist and parents bitwise the fused solve's "
+            f"({fused['ms']:.3f} ms)")
+    # what the loop spends beyond its launches, on one shard: the
+    # banned-vertex re-mask and the change test (elementwise passes over
+    # the [S,J,z] field, timed here) and the host's flag read
+    from repro_torch.kernels.ref import INF
+
+    new = ops.bf_relax_step(args[1], args[0], args[3], args[4], args[5])
+    remask_ms = cuda_ms(torch, lambda: torch.where(args[2], INF, new),
+                        repeats=7)
+    test_ms = cuda_ms(torch, lambda: (new < args[1]).any(), repeats=7)
+    over = (out["1_shard"]["wall_ms"] - global_iters * fused["step_ms"]
+            - fused["fixed_ms"]) / global_iters
+    log(f"[mesh-refine] 1 shard: wall minus {global_iters} x "
+        f"{fused['step_ms']:.3f} ms of bf_relax_step and "
+        f"{fused['fixed_ms']:.3f} ms of epilogue leaves {over:.3f} ms per "
+        f"iteration: the re-mask {remask_ms:.3f} ms and the change test "
+        f"{test_ms:.3f} ms (CUDA events, median of 7), the rest the flag "
+        f"read and the launches")
+    out.update(ms_per_iteration_beyond_step=over, remask_ms=remask_ms,
+               change_test_ms=test_ms)
+    return out
+
+
+def step_path_recorder(torch):
+    """Wrap ``bf_relax.relax_step`` (the launcher ``ops.bf_relax_step``
+    calls) so each launch also returns its per-block path report, held
+    on the card beside the path the data dictates, and its output is
+    held bitwise against the plain step (``ref.bf_relax_ref``) on the
+    same inputs; returns (restore, summary)."""
+    from repro_torch.kernels import bf_relax, ref
+
+    launch = bf_relax.relax_step
+    seen = []
+    shapes = {}
+    unequal = []
+
+    def recording(dist, adj, so, bn, cap):
+        out, path = launch(dist, adj, so, bn, cap, with_path=True)
+        S, J, z = dist.shape
+        jt = bf_relax.tile_width(J, z, bf_relax.step_smem)
+        want = bf_step_path(torch, dist, cap, adj, jt,
+                            bf_relax.step_layout(jt, z)[0])
+        seen.append((path, want))
+        shapes[(S, J, z)] = shapes.get((S, J, z), 0) + 1
+        if not torch.equal(out, ref.bf_relax_ref(dist, adj, so, bn, cap)):
+            unequal.append((S, J, z))
+        return out
+
+    def restore():
+        bf_relax.relax_step = launch
+
+    def summary():
+        n_list = sum(int(p.sum()) for p, _ in seen)
+        blocks = sum(p.numel() for p, _ in seen)
+        agree = all(torch.equal(p, w) for p, w in seen)
+        return dict(launches=len(seen), list_blocks=n_list,
+                    dense_blocks=blocks - n_list, as_dictated=agree,
+                    equal_to_plain=not unequal, unequal=unequal[:5],
+                    shapes={"x".join(map(str, k)): n
+                            for k, n in sorted(shapes.items())})
+
+    bf_relax.relax_step = recording
+    return restore, summary
+
+
+def phase_mesh_serving(torch, np, answers, stats):
+    """The serving trace on ``cuda_bf`` over a 1-shard mesh of the card,
+    barrier and streaming: every (paths, epoch) equal to the non-mesh
+    run's (its update lands between two drained replays, so both modes
+    serve the same answers), ``bf_relax_step`` launched, and in the
+    streaming run every step launch bitwise equal to the plain step on
+    its inputs and every block's path report as the data dictates."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    _, queries, batch = serving_trace(np)
+    mesh = make_host_mesh(1)
+    out = {}
+    for mode in ("barrier", "streaming"):
+        restore, summary = (step_path_recorder(torch) if mode == "streaming"
+                            else (None, None))
+        try:
+            _, got, launches, st = serve(
+                torch, np, "cuda_bf", queries, batch, mesh=mesh,
+                update_mode=mode, label=f"cuda_bf on a 1-shard mesh, {mode}")
+        finally:
+            if restore:
+                restore()
+        check(got == answers, ("mesh serving answers differ", mode))
+        check(launches["bf_relax_step"] > 0
+              and launches["bf_solve_grouped"] > 0,
+              ("mesh serving did not launch both kernels", mode, launches))
+        out[mode] = dict(launches=launches, **st)
+        if summary:
+            paths = summary()
+            check(paths["as_dictated"] and paths["launches"] ==
+                  launches["bf_relax_step"],
+                  ("bf_relax_step path reports in mesh serving", paths))
+            check(paths["equal_to_plain"],
+                  ("bf_relax_step differs from plain in mesh serving",
+                   paths["unequal"]))
+            out[mode]["step_paths"] = paths
+            log(f"[mesh-serving] bf_relax_step ({mode}, the recorder on): "
+                f"every launch bitwise equal to the plain step on its "
+                f"inputs, launches by (S, J, z) {paths['shapes']}; path "
+                f"reports as the data dictates: {paths['launches']} "
+                f"launches, {paths['list_blocks']} blocks on the list, "
+                f"{paths['dense_blocks']} dense")
+    log(f"[mesh-serving] (paths, epoch) of all 64 queries equal the "
+        f"non-mesh cuda_bf run's in both modes; p50/p99/qps: non-mesh "
+        f"{stats['p50_ms']:.1f}/{stats['p99_ms']:.1f}/{stats['qps']:.2f}, "
+        + ", ".join(f"mesh {m} {v['p50_ms']:.1f}/{v['p99_ms']:.1f}/"
+                    f"{v['qps']:.2f}" for m, v in out.items()))
+    return out
+
+
+def phase_driver():
+    """``python -m repro_torch.launch.serve --engine cuda_bf --mesh`` as a
+    user starts it (a 10x10 grid, worker 1 killed and revived): its
+    output must end in "serving run complete" with no EMPTY line."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--engine",
+           "cuda_bf", "--mesh", "--rows", "10", "--cols", "10",
+           "--workers", "4", "--queries", "8", "--epochs", "3", "--kill",
+           "1", "--revive"]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=600, env=dict(os.environ,
+                                               PYTHONPATH=str(ROOT / "src")))
+    wall = time.perf_counter() - t0
+    lines = run.stdout.strip().splitlines()
+    check(run.returncode == 0, ("the serving driver failed", run.returncode,
+                                run.stderr[-2000:]))
+    check(bool(lines) and lines[-1].startswith("serving run complete"),
+          ("the serving driver did not complete", lines[-3:]))
+    check(not any("EMPTY" in line for line in lines),
+          "the serving driver returned EMPTY results")
+    for line in lines:
+        if line.startswith(("mesh refine", "epoch", "stale", "serving")):
+            log(f"[driver] {line}")
+    log(f"[driver] {' '.join(cmd[1:])}: exit 0 in {wall:.1f} s")
 
 
 def phase_ragged_index(torch, np, dev):
@@ -714,8 +1049,7 @@ def phase_ragged_index(torch, np, dev):
             ld, lit, used = ktrop.solve(adj, src, k)
             slots = _build.edge_list_slots(2 * k * z * 4, z)
             check(torch.equal(ld, d) and torch.equal(lit, it)
-                  and torch.equal(used.bool(),
-                                  list_expected(torch, adj, slots)),
+                  and torch.equal(used, solve_path(torch, adj, slots)),
                   ("ktrop_solve loop report", z, density, k))
             if z == 1000 and density == 0.3:
                 check(not used.any(), "z=1000 at 30% ran the in-edge list")
@@ -745,6 +1079,10 @@ def phase_ragged_index(torch, np, dev):
         "{1, 2, 10, 16}, and at z=1000, 30% and 0.4%, k=10; solve rows by "
         f"loop {loops}, step rows by path {step_paths}, each as the data "
         "dictates, z=1000 at 30% all dense")
+    weight_loops = ktrop_solve_weight_case(torch, np, rng, dev)
+    log("[ragged-index] ktrop_solve (D and iterations per row) bitwise "
+        "equal to plain with a kept weight of -1e37 out of row 0's source "
+        f"(k=4, 30 iterations), row 0 dense: {weight_loops}")
     cases = ktrop_step_cases(torch, np, rng, dev)
     torch.cuda.synchronize()
     log("[ragged-index] ktrop_relax_step bitwise equal to plain, with the "
@@ -779,6 +1117,37 @@ def phase_ragged_index(torch, np, dev):
         "for another S; ms (median of 5) by case: "
         + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
     return times
+
+
+def ktrop_solve_weight_case(torch, np, rng, dev):
+    """``ktrop_solve`` on list rows (density 5%, and 1/z at z=1000) with
+    an edge weight of -1e37 out of row 0's source: that row runs the
+    dense loop (levels go below 0 mid-solve, where D + INF < INF), the
+    others their list; bitwise against the plain solve.  Loops by z."""
+    from repro_torch.kernels import _build, ktrop, ref
+
+    out = {}
+    k = 4
+    for z in (33, 256, 1000):
+        S = 3
+        a = rng.integers(1, 9, (S, z, z)).astype(np.float32)
+        a[rng.random((S, z, z)) > min(0.05, 1.0 / z)] = ref.INF
+        for s in range(S):
+            np.fill_diagonal(a[s], 0.0)
+        src = rng.integers(0, z, S).astype(np.int32)
+        a[0, src[0], (src[0] + 1) % z] = -1e37
+        adj = torch.from_numpy(a).to(dev)
+        src = torch.from_numpy(src).to(dev)
+        D, it, used = ktrop.solve(adj, src, k, 30)
+        wD, wit = ref.ktrop_solve_ref(adj, src, k, 30)
+        check(torch.equal(D, wD) and torch.equal(it, wit),
+              ("ktrop_solve with a -1e37 weight", z))
+        want = solve_path(torch, adj, _build.edge_list_slots(2 * k * z * 4, z))
+        check(torch.equal(used, want) and used.tolist()[0] == 0,
+              ("ktrop_solve loop report with a -1e37 weight", z,
+               used.tolist()))
+        out[f"z={z}"] = used.tolist()
+    return out
 
 
 def check_ktrop_step(torch, D, adj, want, what, paths):
@@ -1254,7 +1623,19 @@ def main() -> int:
     timings = phase_refine_dense(torch, dev, cells["refine_dense"])
     timings["bf_solve_grouped"]["serving_shape_ms"] = phase_serving_shape(
         torch, dev)
-    launches = phase_serving(torch, np)
+    launches, answers, serving_stats = phase_serving(torch, np)
+    torch.cuda.empty_cache()
+    mesh_refine = phase_mesh_refine(torch, dev, dict(
+        ms=timings["bf_solve_grouped"]["ms"],
+        step_ms=timings["bf_relax_step"]["ms"],
+        fixed_ms=timings["bf_solve_grouped"]["epilogue_ms"]))
+    torch.cuda.empty_cache()
+    mesh_serving = phase_mesh_serving(torch, np, answers, serving_stats)
+    launches = {name: n + mesh_serving["barrier"]["launches"][name]
+                for name, n in launches.items()}
+    check(launches["bf_relax_step"] > 0,
+          ("no path launched bf_relax_step", launches))
+    phase_driver()
     bound_dist_cases = phase_ragged_index(torch, np, dev)
     torch.cuda.empty_cache()
     for path, shape in ((phase_levels, "levels"),
@@ -1265,6 +1646,9 @@ def main() -> int:
                     for name, n in path_launches.items()}
         torch.cuda.empty_cache()
     timings["bound_dist"]["cases_ms"] = bound_dist_cases
+    timings["bf_relax_step"]["mesh_refine"] = mesh_refine
+    timings["bf_relax_step"]["mesh_serving"] = mesh_serving
+    timings["bf_solve_grouped"]["serving"] = serving_stats
     phase_kspdg_smoke()
 
     sources = {  # kernel -> (CUDA source, the TPU kernel it replaces)

@@ -2,12 +2,14 @@
 """Time the port's kernels (fused solves, step kernels, bound_dist) from two
 checkouts on one CUDA card, in turns.
 
-    python3 scripts/compare_fused_solves.py --other DIR [--out FILE]
+    python3 scripts/compare_fused_solves.py --other DIR [--rounds N] [--out FILE]
 
 DIR is the root of another checkout of this repository, for example the
 parent commit unpacked with ``git archive`` into ``_checkout/`` (listed
 in ``.gitignore``).  The script runs one process per turn, in the order
-other, this, this, other.  Each process builds its checkout's kernels and
+other, this, this, other, and that N times over (``--rounds``, default
+1), so a difference of a percent can be told from the drift between
+turns.  Each process builds its checkout's kernels and
 times, with CUDA events on the same seeded inputs (``chip_smoke.
 road_inputs``):
 
@@ -27,7 +29,7 @@ It prints one JSON line per turn and checks that both checkouts give the
 same bytes for the fused solves and the step kernels (a digest of each
 output).  ``bound_dist``
 sums floats, and two of its versions may add in another order: the
-script checks that each checkout gives the same bytes in both of its
+script checks that each checkout gives the same bytes in all of its
 turns and that the two checkouts agree within rtol 2e-5 (each turn's
 output is kept next to FILE until then).  It writes the turns to FILE
 (default ``chiprun_out/compare_fused_solves.json``) and prints the
@@ -129,6 +131,8 @@ def main() -> int:
     ap.add_argument("--other", type=Path, help="root of the other checkout")
     ap.add_argument("--time", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--keep", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="times to run the turns other, this, this, other")
     ap.add_argument("--out", type=Path,
                     default=ROOT / "chiprun_out" / "compare_fused_solves.json")
     args = ap.parse_args()
@@ -141,8 +145,10 @@ def main() -> int:
 
     turns = []
     args.out.parent.mkdir(parents=True, exist_ok=True)
-    kept = [args.out.with_suffix(f".bound_dist{i}.pt") for i in range(4)]
-    for root, keep in zip((args.other, ROOT, ROOT, args.other), kept):
+    order = (args.other, ROOT, ROOT, args.other) * max(args.rounds, 1)
+    kept = [args.out.with_suffix(f".bound_dist{i}.pt")
+            for i in range(len(order))]
+    for root, keep in zip(order, kept):
         proc = subprocess.run(
             [sys.executable, str(Path(__file__).resolve()), "--time",
              str(root.resolve()), "--keep", str(keep)], capture_output=True,
@@ -155,14 +161,14 @@ def main() -> int:
         print(json.dumps(turn), flush=True)
         turns.append(turn)
     same = all(t["digest"] == turns[0]["digest"] for t in turns)
-    # bound_dist: each checkout's bytes in both its turns, and the two
+    # bound_dist: each checkout's bytes in all its turns, and the two
     # checkouts within rtol 2e-5
-    outs = [torch.load(keep) for keep in kept]
+    outs = [torch.load(keep) for keep in kept[:2]]
     for keep in kept:
         keep.unlink()
-    bd_repeat = (turns[0]["bound_dist_digest"] == turns[3]["bound_dist_digest"]
-                 and turns[1]["bound_dist_digest"]
-                 == turns[2]["bound_dist_digest"])
+    first = {t["which"]: t["bound_dist_digest"] for t in reversed(turns)}
+    bd_repeat = all(t["bound_dist_digest"] == first[t["which"]]
+                    for t in turns)
     bd_rel = float(((outs[1].double() - outs[0].double()).abs()
                     / outs[0].double().abs().clamp(min=1e-30)).max())
     bd_close = bd_rel <= 2e-5

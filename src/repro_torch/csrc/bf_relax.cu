@@ -28,8 +28,9 @@
 // dependent load per (u, v) and thread kept about 3 KB in flight per SM.
 // The block loads its tiles (distances [z][P] by cp.async, spur and ban
 // words: bit j = problem j; each thread its columns) and
-// checks the preconditions under which skipping the entries adj >= INF
-// keeps every byte: each distance >= 0 and each cap <= INF (in_edges.cuh).
+// checks the list's preconditions: each distance >= 0, under which
+// skipping the entries adj >= INF keeps every byte, and each cap <= INF
+// (in_edges.cuh).
 // Where they hold (the sparse path), each thread appends the finite
 // entries of its columns to the in-edge list as the chunks land (2% of
 // the row on a road subgraph, 1,216 of 65,536 at z=256) and then relaxes
@@ -71,9 +72,10 @@
 // memory, are free of bank conflicts.  No per-problem register array is
 // kept; the block runs up to 512 threads, two blocks per SM at the
 // refine_dense shape (64 registers, about 102 KiB of shared memory each).
-// A block whose row has a column over the list's budget runs the same
-// mapping over every u, reading adj[s,u,v] from device memory (the dense
-// loop).  What bounds it: not the single read of the row (2.15 GB at the
+// A block whose row has a column over the list's budget, or whose inputs
+// fail the list's checks (a negative weight or initial distance, a cap
+// above INF, a NaN), runs the same mapping over every u, reading
+// adj[s,u,v] from device memory (the dense loop).  What bounds it: not the single read of the row (2.15 GB at the
 // refine_dense shape, 0.64 ms at 3.35 TB/s) but instruction issue, about
 // 70 warp instructions per vertex group and iteration for 4.75 in-edges,
 // and the per-iteration block barriers.
@@ -81,7 +83,10 @@
 // Exactness.  Only f32 add, min and compare are used, so the order of the
 // u-reduction does not change the result.  INF is the finite 3.0e38: INF+INF
 // overflows to +inf and then loses every min, exactly as in the reference.
-// The accumulators start at +inf, as jnp.min over the candidates does.  The
+// The relaxation's accumulators start at INF, as the Pallas kernel's do
+// (`best = INF`), so a relaxation never returns more than INF, even from a
+// distance of +inf under a cap of +inf; the parent epilogue's minimum
+// starts at +inf, as bf_parents_grouped's argmin over the candidates.  The
 // parent tolerance test is built with __fsub_rn/__fmul_rn (and --fmad=false)
 // so no contraction changes its rounding.  Stopping each block on its own
 // change test gives the same bytes as the reference's global test: one
@@ -89,7 +94,9 @@
 // (monotone f32 add; values clamped by the cap stay clamped).  The fused
 // solve's list skips the entries with adj >= INF; in_edges.cuh gives the
 // argument that this keeps every byte (values, parents, iteration counts)
-// given adj >= 0, init >= 0 and cap <= INF, which every caller meets.
+// given adj >= 0 and init >= 0.  The block checks both (the initial
+// distances at tile load, with the caps <= INF, and the weights as the
+// list is built) and runs its dense loop where one fails.
 // Within a column the list is in ascending u, so the parent epilogue's
 // strict < keeps the first index of the min, as the dense scan does.
 
@@ -208,9 +215,9 @@ __global__ void __launch_bounds__(256, 3) bf_relax_step_kernel(
   // Tiles, each thread its columns v (loads coalesced along v; the thread
   // owns v's mask words, so no atomics).  The distances go straight to
   // shared memory by 4-byte cp.async, all JT of a column in flight at
-  // once, while the mask bytes come through registers; then the checks
-  // under which the list keeps every byte: every distance >= 0 (no NaN),
-  // every cap <= INF (in_edges.cuh)
+  // once, while the mask bytes come through registers; then the list's
+  // checks: every distance >= 0 and every cap <= INF, no NaN in either
+  // (in_edges.cuh)
   int ok = 1;
   for (int j = threadIdx.x; j < JT; j += blockDim.x) {
     const float c = j < jn ? cap[(size_t)s * J + j0 + j] : BF_INF;
@@ -286,7 +293,7 @@ __global__ void __launch_bounds__(256, 3) bf_relax_step_kernel(
     const uint32_t banb = ban_sh[v];
     float acc[JT];
 #pragma unroll
-    for (int j = 0; j < JT; ++j) acc[j] = pos_inf();
+    for (int j = 0; j < JT; ++j) acc[j] = BF_INF;
     const int n = list.deg[v];
     for (int i = 0; i < n; ++i) {
       const InEdge e = list.e[i * z + v];
@@ -306,7 +313,7 @@ __global__ void __launch_bounds__(256, 3) bf_relax_step_kernel(
     const uint32_t banb = v < z ? ban_sh[v] : 0u;
     float acc[JT];
 #pragma unroll
-    for (int j = 0; j < JT; ++j) acc[j] = pos_inf();
+    for (int j = 0; j < JT; ++j) acc[j] = BF_INF;
     int u = 0;  // this thread's next source
     row_stream(st, plan, uses, [&](const float* buf, int f0, int f1) {
       if (v >= z) return;
@@ -375,11 +382,17 @@ __global__ void __launch_bounds__(512, 2) bf_solve_grouped_kernel(
   const float* adj_s = adj + (size_t)s * z * z;
 
   // Tiles, coalesced along v: dist0 = where(banned_v, INF, init), padding
-  // problems INF; mask words (bit j = problem j) by all threads
+  // problems INF; mask words (bit j = problem j) by all threads; and the
+  // list's checks (in_edges.cuh): every initial distance >= 0 and every
+  // cap <= INF, no NaN in either
   for (int v = threadIdx.x; v < z; v += blockDim.x)
     spur_sh[v] = ban_sh[v] = bv_sh[v] = 0u;
-  for (int j = threadIdx.x; j < JT; j += blockDim.x)
-    cap_sh[j] = j < jn ? cap[(size_t)s * J + j0 + j] : BF_INF;
+  int inputs_ok = 1;
+  for (int j = threadIdx.x; j < JT; j += blockDim.x) {
+    const float c = j < jn ? cap[(size_t)s * J + j0 + j] : BF_INF;
+    cap_sh[j] = c;
+    inputs_ok &= c <= BF_INF;
+  }
   __syncthreads();
   for (int i = threadIdx.x; i < JT * z; i += blockDim.x) {
     const int j = i / z, v = i - j * z;
@@ -393,9 +406,11 @@ __global__ void __launch_bounds__(512, 2) bf_solve_grouped_kernel(
       else d = init[at];
     }
     d_cur[v * P + j] = d;
+    inputs_ok &= d >= 0.0f;
   }
-  // the one read of the row; its closing barrier also publishes the tiles
-  const bool use_list = build_in_edges(adj_s, z, slots, P, list);
+  // the one read of the row (which also checks every kept weight >= 0);
+  // its closing barrier also publishes the tiles
+  const bool use_list = build_in_edges(adj_s, z, slots, P, list, inputs_ok);
 
   // lane -> (v, j): lanes along j, 32/JT vertices per warp
   constexpr int G = 32 / JT;
@@ -414,7 +429,7 @@ __global__ void __launch_bounds__(512, 2) bf_solve_grouped_kernel(
       const int v = g * G + sub;
       if (v >= z) continue;
       const uint32_t banb = ban_sh[v];
-      float acc = pos_inf();
+      float acc = BF_INF;
       if (use_list) {
         const InEdge* ev = list.e + v;
         const int n = list.deg[v];

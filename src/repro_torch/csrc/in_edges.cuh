@@ -1,8 +1,9 @@
 // Compact in-edge list of one adjacency row, held in shared memory.
 //
-// Shared by the fused fixed-point kernels (bf_solve_grouped in bf_relax.cu,
-// ktrop_solve in ktrop.cu), and built from a staged row by the step
-// kernels (append_in_edges).  A block owns slab row s and iterates a
+// Built from device memory by the fused fixed-point kernels
+// (bf_solve_grouped in bf_relax.cu, ktrop_solve in ktrop.cu:
+// build_in_edges), and from a staged row by the step kernels
+// (append_in_edges).  A block owns slab row s and iterates a
 // relaxation over adj[s] tens of times.  The row is z*z f32 (256 KiB at
 // z=256) and does not fit in shared memory beside the distance tiles, but a
 // road subgraph's row is about 98% INF (no edge).  So the block reads the
@@ -18,29 +19,39 @@
 // one pass and the row is read from device memory exactly once; the price
 // is that the budget is a column's in-degree (at most `slots`) rather than
 // the row's total.  A block with a column over budget (or no room for any
-// slot) runs the dense loop over every u instead: the kernel's own data
-// decides, and both loops give the plain version's bytes.
+// slot), or whose inputs fail the checks below, runs the dense loop over
+// every u instead: the kernel's own data decides, and both loops give the
+// plain version's bytes.
 //
 // Order.  Ascending u within a column is what the BF parent epilogue needs:
 // its argmin keeps the first index of the min (engine/dense.py,
 // bf_parents_grouped), so two in-edges that tie must be visited in u order.
 // Min and the k-distinct set do not depend on order.
 //
-// Why skipping adj >= INF keeps the bytes.  Preconditions: adj >= 0, the
-// distances >= 0 (and <= INF), and for BF cap <= INF.  A skipped term is
-// d[u] + adj >= INF (a cut term is INF), so it can change min(old, kept
-// terms) only where that minimum already exceeds INF; there the cap clamp
-// (nw > cap -> INF) sends the dense and the sparse result both to INF, so
-// the values, the change test and the iteration counts agree.  In the
-// parent epilogue a skipped term (>= INF) can never be the argmin of a
-// reached v, whose kept minimum lies within 1e-6 of dist < INF/2; an
-// unreached v gets -1 either way.  For ktrop a candidate >= INF is never
-// inserted into the k-list, so a skipped entry never changes it.  The
-// argument reads adj only at the skipped entries (adj >= INF, or NaN,
-// whose terms lose every fminf and are never inserted either way): for one
-// relaxation it needs d >= 0 (no NaN) and cap <= INF, which the step
-// kernels check per block; a negative entry is finite and stays in the
-// list.
+// Why skipping adj >= INF keeps the bytes.  Precondition: the distances
+// (levels) are >= 0, +inf included.  A skipped term is then d[u] + adj >=
+// INF (a cut term is INF).  A BF relaxation's minimum starts at INF, as the
+// Pallas kernel's accumulator does, so such a term never changes it: the
+// values, the change test and the iteration counts agree with the dense
+// scan's.  In the parent epilogue a skipped term (>= INF) can never be the
+// argmin of a reached v, whose kept minimum lies within 1e-6 of dist <
+// INF/2; an unreached v gets -1 either way.  For ktrop a candidate >= INF
+// is never inserted into the k-list, so a skipped entry never changes it.
+// The argument reads adj only at the skipped entries (adj >= INF, or NaN,
+// whose terms lose every fminf and are never inserted either way).
+//
+// Who checks what.  One relaxation needs d >= 0 (no NaN), which the step
+// kernels check per block on their input; a negative entry is finite and
+// stays in the list.  The fused solves iterate: a negative weight can push
+// a distance below zero mid-solve, after which d[u] + INF < INF and a
+// skipped term could win.  So bf_solve_grouped checks its initial
+// distances (>= 0, no NaN) at tile load (ktrop_solve's D0 is 0 and INF),
+// and build_in_edges checks every kept weight for >= 0 in both; a block
+// where a check fails runs its dense loop, as a block with a column over
+// the list's budget does, and reports it (list_out).  The BF kernels also
+// send a block with a cap above INF (or NaN) to the dense loop: with the
+// minimum starting at INF the list would keep those bytes too (a minimum
+// starting at +inf would not), and the check costs one compare per cap.
 
 #pragma once
 
@@ -70,13 +81,16 @@ struct InEdgeList {
 // (shared memory), with at = u * scale.  Each thread fills the columns
 // v = tid, tid + blockDim, ...; for one u a warp's loads are consecutive in
 // v (coalesced).  Ends with a block barrier and returns, on every thread,
-// whether every column fit (false also when slots == 0: the row is then
-// not read at all).
+// whether the list may replace the row: every thread's `ok` (its own
+// checks of the block's other inputs) held, every kept weight is >= 0 and
+// every column fit (false also when slots == 0: the row is then not read
+// at all, nor by a thread whose `ok` failed).
 __device__ __forceinline__ bool build_in_edges(const float* __restrict__ adj_s,
                                                int z, int slots, int scale,
-                                               InEdgeList list) {
+                                               InEdgeList list,
+                                               bool ok = true) {
   constexpr int kUnroll = 16;  // loads in flight per thread
-  int over = slots <= 0;
+  int over = slots <= 0 || !ok;
   if (!over) {
     for (int v = threadIdx.x; v < z; v += blockDim.x) {
       int n = 0;
@@ -88,6 +102,7 @@ __device__ __forceinline__ bool build_in_edges(const float* __restrict__ adj_s,
 #pragma unroll
         for (int t = 0; t < kUnroll; ++t) {
           if (a[t] < IE_INF) {
+            over |= a[t] < 0.0f;  // a negative weight: the dense loop
             if (n < slots) list.e[n * z + v] = InEdge{(u0 + t) * scale, a[t]};
             ++n;
           }

@@ -49,7 +49,9 @@
 // the list slots are consecutive in v too.  Each vertex's k-list starts as
 // a copy of its own levels, which is what folding them would give: D is
 // distinct and ascending below INF throughout the solve.  A block whose row
-// has a column over the list's budget scans every u of the dense row from
+// has a column over the list's budget, or a negative weight (which could
+// take D below zero mid-solve, where a skipped entry's candidate D + INF
+// falls below INF: in_edges.cuh), scans every u of the dense row from
 // device memory instead (the same fold; one add and one compare per
 // non-edge).
 //
@@ -223,7 +225,8 @@ __global__ void ktrop_solve_kernel(const float* __restrict__ adj,
   const int sv = src[s];
   for (int i = threadIdx.x; i < z * K; i += blockDim.x)
     cur[i] = (sv >= 0 && sv < z && i == sv) ? 0.0f : KT_INF;
-  // the one read of the row; its closing barrier also publishes D0
+  // the one read of the row (which also checks every kept weight >= 0);
+  // its closing barrier also publishes D0
   const bool use_list = build_in_edges(adj_s, z, slots, 1, list);
 
   int it = 0;

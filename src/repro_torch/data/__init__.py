@@ -1,1 +1,2 @@
-"""repro_torch.data — synthetic road networks and weight-update streams."""
+"""repro_torch.data — synthetic road networks, weight-update streams and
+the DIMACS .gr loader."""

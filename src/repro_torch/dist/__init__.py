@@ -1,4 +1,4 @@
-"""repro.dist — the distributed KSP-DG runtime.
+"""repro_torch.dist — the distributed KSP-DG runtime.
 
 Layering (host → device):
 
@@ -10,16 +10,18 @@ Layering (host → device):
 * ``scheduler``    — cross-query batched serving: concurrent queries run
   as lockstep steppers whose refine tasks are merged (de-duped) into
   shared per-worker grouped solves, behind a bounded admission queue
-* ``shard_refine`` — jax.shard_map production refine/update/allreduce
+* ``shard_refine`` — the multi-device refine/update/allreduce over a
+  ``repro_torch.launch.mesh.DeviceMesh`` (``torch.distributed`` across
+  processes)
 
-``shard_refine`` (and the dense worker path) import jax; the placement
+``shard_refine`` and the slab worker path use torch; the placement
 module is numpy-only, so control-plane users can stay device-free.
 
 This package is the runtime UNDER the public serving API: entry points
-construct a ``repro.service.KSPService`` (typed requests, epoch-stamped
+construct a ``repro_torch.service.KSPService`` (typed requests, epoch-stamped
 results, SLO admission) rather than calling ``Cluster.query`` or
 ``QueryScheduler.submit`` directly.  Refine engines are named
-``repro.engine.registry.EngineSpec``s — no engine string-switches live
+``repro_torch.engine.registry.EngineSpec``s — no engine string-switches live
 here anymore.
 """
 

@@ -203,7 +203,8 @@ class Worker:
     """
 
     def __init__(self, wid: int, dtlp: DTLP, gids, spec: EngineSpec,
-                 device="cuda"):
+                 device="cuda", solver=None, s_multiple: int = 1,
+                 shards=None, update_fn=None, mesh_desc=None):
         self.wid = wid
         self.dtlp = dtlp
         self.gids = set(int(g) for g in gids)
@@ -217,6 +218,13 @@ class Worker:
         self.cache = PartialKSPCache()
         # where the slab's resident copy lives and its solves run
         self.device = torch.device(device)
+        self.solver = solver
+        self.s_multiple = int(s_multiple)
+        # mesh config: how the slab copy's cells are patched (a
+        # shard_refine make_update_fn product on a mesh, where ``shards``
+        # split the copy) and the mesh label for spans
+        self._update_fn = update_fn
+        self._mesh_desc = mesh_desc
         self.epoch = dtlp.epoch
         self.pending: list[np.ndarray] = []  # eid batches missed while dead
         # double-buffered epochs (streaming updates): the slab of the
@@ -248,10 +256,12 @@ class Worker:
             # gathers rows from this resident mirror instead of paying a
             # host→device transfer (device-resident across ticks)
             t0 = obs.clock()
-            place_slab(self.slab, self.device)
+            place_slab(self.slab, self.device, shards=shards,
+                       s_multiple=s_multiple)
             obs.span_at("slab_place", t0, obs.clock() - t0,
                         worker=self.wid, S=int(self.slab.adj.shape[0]),
-                        z=int(self.slab.z), device=str(self.device))
+                        z=int(self.slab.z), device=str(self.device),
+                        mesh=mesh_desc)
 
     # ------------------------------------------------------------- refine
     def execute_async(self, tasks, k: int,
@@ -467,7 +477,9 @@ class Worker:
         """Scatter patched cells into the slab's device copy.
 
         Batches are padded to a pow2 length with -1 rows, dropped by the
-        scatter (the same batch contract as the reference package's).
+        scatter (the same batch contract as the reference package's); on
+        a mesh, the scatter routes through ``shard_refine.make_update_fn``
+        and each shard applies only the rows it holds.
         """
         from repro_torch.engine.dense import scatter_slab_cells
 
@@ -479,7 +491,8 @@ class Worker:
         ww = np.zeros(n_pad, np.float32)
         for i, ((r, lu, lv), val) in enumerate(cells.items()):
             rows[i], uu[i], vv[i], ww[i] = r, lu, lv, float(val)
-        slab.adj_dev = scatter_slab_cells(slab.adj_dev, rows, uu, vv, ww)
+        slab.adj_dev = scatter_slab_cells(slab.adj_dev, rows, uu, vv, ww,
+                                          update_fn=self._update_fn)
 
     def _min_weight(self, sg, lu: int, lv: int, w: np.ndarray) -> np.float32:
         lo, hi = sg.indptr[lu], sg.indptr[lu + 1]
@@ -533,7 +546,10 @@ class Cluster:
 
     ``device`` is where slab engines keep their slabs and run their
     solves: the card unless the caller asks for ``"cpu"``.  A device
-    mesh (``mesh``, ``mesh_axis``) is not ported yet: passing one raises.
+    ``mesh`` (a :class:`repro_torch.launch.mesh.DeviceMesh` on devices of
+    that type) routes a mesh-capable engine's refine through
+    ``shard_refine.make_refine_fn`` over ``mesh_axis``, with each slab's
+    copy split over the mesh's devices.
     """
 
     def __init__(self, dtlp: DTLP, n_workers: int, engine="pyen",
@@ -544,11 +560,8 @@ class Cluster:
         self.dtlp = dtlp
         self.spec = get_engine(engine)
         self.engine = self.spec.name
-        if mesh is not None:
-            raise ValueError(
-                f"engine {self.engine!r} has no device-mesh path in "
-                "repro_torch; multi-GPU serving is queued in ROADMAP.md"
-            )
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
         self.device = resolve_device(device)
         self.straggler_factor = (
             None if straggler_factor is None else float(straggler_factor)
@@ -571,9 +584,40 @@ class Cluster:
                 f"cluster has {n_workers}"
             )
         self.placement: Placement = placement
+        device = self.device
+        solver = None
+        s_multiple = 1
+        shards = None
+        update_fn = None
+        mesh_desc = None
+        if self.mesh is not None:
+            if not self.spec.supports_mesh:
+                raise ValueError(
+                    f"engine {self.engine!r} has no device-mesh path"
+                )
+            shards = list(self.mesh.devices)
+            if any(d.type != device.type for d in shards):
+                raise ValueError(
+                    f"mesh devices {[str(d) for d in shards]} are not of "
+                    f"the cluster's device type {device.type!r}")
+            device = shards[0]
+            solver, s_multiple = self.spec.make_mesh_solver(
+                self.mesh, self.mesh_axis
+            )
+            # device-resident placement + on-device patching for the
+            # mesh path: slabs live split over the S axis across ticks
+            from repro_torch.dist.shard_refine import (describe_mesh,
+                                                       make_update_fn)
+
+            update_fn = make_update_fn(self.mesh, axis=self.mesh_axis)
+            mesh_desc = describe_mesh(self.mesh, self.mesh_axis)
+        self._mesh_desc = mesh_desc
         self.workers = [
-            Worker(w, self.dtlp, self.placement.owned_by(w), self.spec,
-                   device=self.device)
+            Worker(
+                w, self.dtlp, self.placement.owned_by(w), self.spec,
+                device=device, solver=solver, s_multiple=s_multiple,
+                shards=shards, update_fn=update_fn, mesh_desc=mesh_desc,
+            )
             for w in range(n_workers)
         ]
 
@@ -797,7 +841,8 @@ class Cluster:
             tw = obs.clock()
             shadows[w.wid] = w.prepare_patch(eids_w, plan.w_next)
             obs.span_at("prepare_patch", tw, obs.clock() - tw,
-                        worker=w.wid, edges=int(eids_w.shape[0]))
+                        worker=w.wid, edges=int(eids_w.shape[0]),
+                        mesh=self._mesh_desc)
         prepare_s = obs.clock() - t0
         obs.span_at("epoch_prepare", t0, prepare_s,
                     epoch=self.epoch + 1, edges=int(plan.eids.shape[0]))
@@ -816,7 +861,8 @@ class Cluster:
                 tw = obs.clock()
                 w.commit_patch(shadows.get(w.wid), epoch)
                 obs.span_at("commit_patch", tw, obs.clock() - tw,
-                            worker=w.wid, epoch=epoch)
+                            worker=w.wid, epoch=epoch,
+                            mesh=self._mesh_desc)
             else:
                 w.defer_weights(plan.eids)
         commit_s = obs.clock() - t1
@@ -909,8 +955,9 @@ class Cluster:
         restore into a DIFFERENT index shape.  Placement and per-worker
         stats are restored when the worker count AND index shape match
         the snapshot (otherwise the cluster re-places and starts fresh
-        stats).  The device is runtime configuration, not state: pass
-        ``device`` for the restored cluster.
+        stats).  The device and a device mesh are runtime configuration,
+        not state: pass ``device`` (and ``mesh``/``mesh_axis`` to restore
+        a mesh refine path) for the restored cluster.
         """
         z = int(snap["z"]) if z is None else int(z)
         xi = int(snap["xi"]) if xi is None else int(xi)

@@ -11,7 +11,9 @@ for, Section 6.1's SubgraphBolt batching).
 Execution is pluggable: a :class:`repro_torch.engine.backend.SolverBackend`
 supplies both the solve (the plain PyTorch ``bf_solve_grouped`` or the
 fused Hopper kernel) and the bucket geometry (its ``SlabLayout`` owns
-the hot-row packing rule).  Round buffers go to the solve's ``device``
+the hot-row packing rule); a mesh ``solver`` override (a
+``shard_refine.make_refine_fn`` product) replaces the execution while
+the backend keeps supplying geometry.  Round buffers go to the solve's ``device``
 when dispatched; the host copies results back only in
 ``_collect_round``.
 
@@ -33,17 +35,21 @@ _INF = float(INF)
 _DEFAULT_BACKEND = TorchBackend()
 
 
-def _dispatch_round(adj, jobs, backend, gather=None, device="cuda"):
+def _dispatch_round(adj, jobs, solver, s_multiple, backend, gather=None,
+                    device="cuda"):
     """Pack one round's jobs and ISSUE the grouped solve — non-blocking.
 
     ``jobs``: (row, spur, banned_v, banned_next, cap).  Packing goes
     through the backend layout's ``pack_round`` (fresh donation-safe
-    scratch buffers, hot rows split across duplicates).  ``gather`` sources the round's adjacency from
-    a device-resident slab copy instead of a host copy (see
+    scratch buffers, hot rows split across duplicates, bucket a multiple
+    of ``s_multiple`` — the mesh's shard count when the solver is a mesh
+    refine).  ``gather`` sources the round's adjacency from a
+    device-resident slab copy instead of a host copy (see
     ``SlabLayout.pack_round``).  The buffers move to ``device`` and the
-    solve is queued there; it returns tensors the device is still
-    computing while the host moves on (the host waits only in
-    ``_collect_round``).
+    solve is queued there; the backend's solve returns tensors the
+    device is still computing while the host moves on (the host waits
+    only in ``_collect_round``; a mesh refine reads its change flag once
+    per iteration).
 
     Returns an opaque pending handle for ``_collect_round``, or None on
     zero jobs.
@@ -51,9 +57,10 @@ def _dispatch_round(adj, jobs, backend, gather=None, device="cuda"):
     if not jobs:
         return None
     t0 = obs.clock()
-    buffers, slots = backend.layout.pack_round(adj, jobs, gather=gather)
-    dist, parent = backend.solve_grouped(
-        *(to_device(b, device) for b in buffers))
+    buffers, slots = backend.layout.pack_round(adj, jobs, s_multiple,
+                                               gather=gather)
+    solve = solver if solver is not None else backend.solve_grouped
+    dist, parent = solve(*(to_device(b, device) for b in buffers))
     obs.span_at("dispatch_round", t0, obs.clock() - t0, jobs=len(jobs),
                 adj_src="device" if gather is not None else "host")
     return dist, parent, slots
@@ -71,10 +78,12 @@ def _collect_round(pending):
     return [(dist[sr, j], parent[sr, j]) for sr, j in slots]
 
 
-def _solve_round(adj, jobs, backend, gather=None, device="cuda"):
+def _solve_round(adj, jobs, solver, s_multiple, backend, gather=None,
+                 device="cuda"):
     """One grouped solve, dispatch + collect back to back (the lockstep
     path and tests use this; the pipeline steps the two halves apart)."""
-    return _collect_round(_dispatch_round(adj, jobs, backend, gather, device))
+    return _collect_round(_dispatch_round(adj, jobs, solver, s_multiple,
+                                          backend, gather, device))
 
 
 class _TaskState:
@@ -148,7 +157,8 @@ class _TaskState:
             self.done = True
 
 
-def grouped_ksp_async(adj, tasks, k: int, *, use_cap: bool = True,
+def grouped_ksp_async(adj, tasks, k: int, *, solver=None,
+                      use_cap: bool = True, s_multiple: int = 1,
                       backend=None, gather=None, device="cuda"):
     """Generator form of :func:`grouped_ksp`: one ``yield`` per device
     round, placed AFTER the round's solve has been dispatched and BEFORE
@@ -181,7 +191,8 @@ def grouped_ksp_async(adj, tasks, k: int, *, use_cap: bool = True,
             first_of[key] = len(jobs)
             jobs.append((st.row, st.src, np.zeros(z, bool),
                          np.zeros(z, bool), _INF))
-    pending = _dispatch_round(adj, jobs, backend, gather, device)
+    pending = _dispatch_round(adj, jobs, solver, s_multiple, backend, gather,
+                              device)
     yield
     round0 = _collect_round(pending)
     for st in states:
@@ -208,7 +219,8 @@ def grouped_ksp_async(adj, tasks, k: int, *, use_cap: bool = True,
             jobs.extend(j)
             metas.append(m)
             owners.append(st)
-        pending = _dispatch_round(adj, jobs, backend, gather, device)
+        pending = _dispatch_round(adj, jobs, solver, s_multiple, backend,
+                                  gather, device)
         yield
         results = _collect_round(pending)
         off = 0
@@ -219,8 +231,9 @@ def grouped_ksp_async(adj, tasks, k: int, *, use_cap: bool = True,
     return [st.found for st in states]
 
 
-def grouped_ksp(adj, tasks, k: int, *, use_cap: bool = True, backend=None,
-                gather=None, device="cuda"):
+def grouped_ksp(adj, tasks, k: int, *, solver=None, use_cap: bool = True,
+                s_multiple: int = 1, backend=None, gather=None,
+                device="cuda"):
     """K shortest simple paths for a batch of same-slab tasks.
 
     adj     : float32[S, z, z] packed slab (INF off-edges, 0 diagonal)
@@ -228,6 +241,12 @@ def grouped_ksp(adj, tasks, k: int, *, use_cap: bool = True, backend=None,
     backend : a :class:`repro_torch.engine.backend.SolverBackend`
               supplying the grouped solve and its bucket geometry;
               default the plain PyTorch one.
+    solver  : (adj, init, bv, so, bn, cap) → (dist, parent) execution
+              override — e.g. a ``repro_torch.dist.shard_refine.
+              make_refine_fn`` product; the backend still supplies
+              geometry.
+    s_multiple : each round's bucket S is a multiple of it (the mesh's
+              shard count when the solver is a mesh refine).
     gather  : optional device-resident adjacency gather (see
               ``SlabLayout.pack_round``).
     device  : where the round buffers go and the solve runs (the card
@@ -239,7 +258,8 @@ def grouped_ksp(adj, tasks, k: int, *, use_cap: bool = True, backend=None,
     driver over :func:`grouped_ksp_async` (one implementation, two
     schedules).
     """
-    gen = grouped_ksp_async(adj, tasks, k, use_cap=use_cap, backend=backend,
+    gen = grouped_ksp_async(adj, tasks, k, solver=solver, use_cap=use_cap,
+                            s_multiple=s_multiple, backend=backend,
                             gather=gather, device=device)
     while True:
         try:

@@ -36,7 +36,8 @@ class SubgraphSlab:
     """Padded dense subgraph batch + bookkeeping (host side).
 
     ``adj_dev`` is the DEVICE-RESIDENT copy of ``adj`` (:func:`place_slab`
-    creates it): the per-round dispatch gathers adjacency rows from it on
+    creates it: one tensor, or a :class:`ShardedMirror` over a mesh's
+    shards): the per-round dispatch gathers adjacency rows from it on
     the device (:func:`gather_slab_rows`) instead of copying the slab
     host→device every grouped solve.  Patches keep it in sync
     FUNCTIONALLY — each update produces a new tensor, never writes into
@@ -49,7 +50,7 @@ class SubgraphSlab:
     gids: np.ndarray       # int64[S] original subgraph ids
     z: int
     epoch: int = 0         # graph epoch the adj entries were packed/patched at
-    adj_dev: torch.Tensor | None = None  # device copy [S, z, z]
+    adj_dev: torch.Tensor | ShardedMirror | None = None  # [S_dev, z, z]
 
     @property
     def n_sub(self) -> int:
@@ -105,28 +106,98 @@ def to_device(array, device) -> torch.Tensor:
     return t.to(device)
 
 
-def place_slab(slab: SubgraphSlab, device="cuda") -> SubgraphSlab:
+@dataclasses.dataclass(frozen=True)
+class ShardedMirror:
+    """A slab's device copy split by rows over a mesh's shards:
+    ``parts[i]`` holds rows [i·rows, (i+1)·rows) of the padded slab on
+    shard i's device (one device may hold several parts).  Patched
+    functionally, as a plain copy is: an update makes new parts where it
+    writes and shares the others."""
+
+    parts: tuple
+
+    @property
+    def rows(self) -> int:
+        return int(self.parts[0].shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        """The first shard's device, where gathers land."""
+        return self.parts[0].device
+
+    @property
+    def shape(self) -> tuple:
+        return (self.rows * len(self.parts),) + tuple(self.parts[0].shape[1:])
+
+    def full(self) -> torch.Tensor:
+        """The whole padded slab as one tensor on :attr:`device`."""
+        return torch.cat([p.to(self.device) for p in self.parts])
+
+
+def place_slab(slab: SubgraphSlab, device="cuda", shards=None,
+               s_multiple: int = 1) -> SubgraphSlab:
     """Stage a slab's adjacency on ``device`` ONCE (the resident copy
     ``pack_round`` gathers from every round thereafter).  The copy never
-    aliases the host buffer.  Updates the slab in place and returns it."""
-    slab.adj_dev = torch.from_numpy(slab.adj).to(device, copy=True)
+    aliases the host buffer.
+
+    ``shards`` (a mesh's devices, one per shard) splits the copy by rows
+    over them as a :class:`ShardedMirror`; a single shard keeps one
+    tensor on its device.  S is padded up to a multiple of ``s_multiple``
+    (the mesh's shard count) with copies of row 0, so the rows divide
+    evenly, as the round buckets do — filler rows are never gathered and
+    never patched.  Updates the slab in place and returns it."""
+    S = slab.adj.shape[0]
+    s_multiple = max(1, int(s_multiple))
+    S_dev = -(-S // s_multiple) * s_multiple
+    buf = slab.adj
+    if S_dev != S:
+        buf = np.concatenate(
+            [slab.adj, np.repeat(slab.adj[:1], S_dev - S, axis=0)], axis=0)
+    if shards is None or len(shards) == 1:
+        dev = device if shards is None else shards[0]
+        slab.adj_dev = torch.from_numpy(buf).to(dev, copy=True)
+        return slab
+    if S_dev % len(shards):
+        raise ValueError(f"{S_dev} slab rows do not split over "
+                         f"{len(shards)} shards (s_multiple={s_multiple})")
+    rows = S_dev // len(shards)
+    slab.adj_dev = ShardedMirror(tuple(
+        torch.from_numpy(buf[i * rows:(i + 1) * rows]).to(d, copy=True)
+        for i, d in enumerate(shards)))
     return slab
 
 
 def gather_slab_rows(slab: SubgraphSlab, rows) -> torch.Tensor:
     """On-device [len(rows), z, z] adjacency gather from the resident
     copy — the zero-transfer replacement for the host row copy in
-    ``SlabLayout.pack_round``."""
-    idx = to_device(np.asarray(rows, dtype=np.int64), slab.adj_dev.device)
-    return slab.adj_dev.index_select(0, idx)
+    ``SlabLayout.pack_round``.  From a :class:`ShardedMirror` each shard
+    gives the rows it holds, gathered on the first shard's device."""
+    rows = np.asarray(rows, dtype=np.int64)
+    mirror = slab.adj_dev
+    if not isinstance(mirror, ShardedMirror):
+        return mirror.index_select(0, to_device(rows, mirror.device))
+    home = mirror.device
+    out = torch.empty((rows.shape[0],) + mirror.shape[1:],
+                      dtype=mirror.parts[0].dtype, device=home)
+    for i, part in enumerate(mirror.parts):
+        local = rows - i * mirror.rows
+        pick = np.nonzero((local >= 0) & (local < mirror.rows))[0]
+        if pick.size:
+            got = part.index_select(0, to_device(local[pick], part.device))
+            out[to_device(pick, home)] = got.to(home)
+    return out
 
 
-def scatter_slab_cells(adj_dev: torch.Tensor, rows, uu, vv, ww):
-    """Functionally patch cells of a device copy: returns a NEW tensor and
+def scatter_slab_cells(adj_dev, rows, uu, vv, ww, update_fn=None):
+    """Functionally patch cells of a device copy: returns a NEW copy and
     never writes into ``adj_dev`` (in-flight queries of the previous
     epoch may still read it).  ``rows`` is -1-padded; padded entries are
     dropped.  ``ww`` holds the EFFECTIVE (min over parallel edges) new
-    weights."""
+    weights.  ``update_fn`` (a ``shard_refine.make_update_fn`` product)
+    routes the scatter through the mesh path, where each shard applies
+    the rows it holds; default is the single-device form."""
+    if update_fn is not None:
+        return update_fn(adj_dev, rows, uu, vv, ww)
     rows = np.asarray(rows, dtype=np.int64)
     keep = rows >= 0
     dev = adj_dev.device

@@ -4,9 +4,10 @@ An :class:`EngineSpec` packages everything a ``dist.cluster.Worker``
 needs to run one engine — whether it packs a dense slab, the
 :class:`~repro_torch.engine.backend.SolverBackend` that executes (and
 whose :class:`~repro_torch.engine.layout.SlabLayout` owns all slab
-geometry), and how to solve a batch of cache-miss refine tasks — and the
-registry maps names to specs.  ``repro_torch.service`` re-exports this
-module as the public way to plug in an engine; the builtin specs are
+geometry), how to solve a batch of cache-miss refine tasks, and how to
+build a device-mesh solver — and the registry maps names to specs.
+``repro_torch.service`` re-exports this module as the public way to plug
+in an engine; the builtin specs are
 ``pyen`` (host Yen), ``dense_bf`` (plain PyTorch grouped BF) and
 ``cuda_bf`` (the fused Hopper kernel).
 
@@ -25,6 +26,8 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Callable
+
+from repro_torch.dist.shard_refine import mesh_axis_names  # noqa: F401
 
 from .backend import CudaBackend, SolverBackend, TorchBackend
 from .layout import PLAIN_LAYOUT, SlabLayout
@@ -45,7 +48,9 @@ class EngineSpec:
     solves a batch of partial-KSP tasks against the weights of
     ``epoch``; ``packs_slab`` makes each worker pack its owned subgraphs
     into a dense ``[S, z, z]`` slab at init, with all geometry coming
-    from ``backend.layout``.
+    from ``backend.layout``; ``make_mesh_solver(mesh, mesh_axis) ->
+    (solver, s_multiple)`` is optional device-mesh wiring (None = the
+    engine has no mesh path).
     """
 
     name: str
@@ -58,6 +63,7 @@ class EngineSpec:
     refine_async: Callable | None = None
     packs_slab: bool = False
     backend: SolverBackend | None = None
+    make_mesh_solver: Callable | None = None
     # reference-path stream KSP-DG's filter phase consumes when this
     # engine serves a query (``repro_torch.core.refstream`` name)
     ref_stream: str = "lazy"
@@ -67,6 +73,11 @@ class EngineSpec:
     def layout(self) -> SlabLayout:
         """The slab geometry this engine's workers pack and solve in."""
         return self.backend.layout if self.backend is not None else PLAIN_LAYOUT
+
+    @property
+    def supports_mesh(self) -> bool:
+        """Whether the spec carries device-mesh wiring."""
+        return self.make_mesh_solver is not None
 
 
 _REGISTRY: dict[str, EngineSpec] = {}
@@ -88,6 +99,8 @@ def get_engine(name) -> EngineSpec:
 
     >>> get_engine("cuda_bf").backend.name
     'cuda'
+    >>> get_engine("dense_bf").supports_mesh
+    True
     """
     if isinstance(name, EngineSpec):
         return name
@@ -159,6 +172,7 @@ def _grouped_refine_async(worker, misses, k, epoch):
     # and transfer (the steady-state query path never re-stages the slab)
     results = yield from grouped_ksp_async(
         slab.adj, gk_tasks, k,
+        solver=worker.solver, s_multiple=worker.s_multiple,
         backend=worker.spec.backend, device=slab.adj_dev.device,
         gather=lambda rows: gather_slab_rows(slab, rows),
     )
@@ -174,13 +188,45 @@ def _grouped_refine_async(worker, misses, k, epoch):
 
 def _grouped_refine(worker, misses, k, epoch):
     """Synchronous driver over :func:`_grouped_refine_async`, executed by
-    the spec's :class:`SolverBackend`."""
+    the spec's :class:`SolverBackend` — or by the worker's mesh solver
+    when one is wired."""
     gen = _grouped_refine_async(worker, misses, k, epoch)
     while True:
         try:
             next(gen)
         except StopIteration as fin:
             return fin.value
+
+
+def _grouped_mesh_solver(backend):
+    """``make_mesh_solver`` for any slab backend: the grouped-BF fixed
+    point over a device mesh, with this backend's relaxation body
+    (``mesh_relax``) inside the loop."""
+
+    def make(mesh, mesh_axis):
+        from repro_torch import obs
+        from repro_torch.dist.shard_refine import (describe_mesh,
+                                                   make_refine_fn,
+                                                   shard_count)
+
+        refine = make_refine_fn(mesh, axis=mesh_axis, backend=backend)
+        s_multiple = shard_count(mesh, mesh_axis)
+        desc = describe_mesh(mesh, mesh_axis)
+
+        def solver(adj, init, bv, so, bn, cap):
+            # the same contract (and span) as backend.solve_grouped, plus
+            # the mesh= shard-dispatch attr; it reads the change flag on
+            # the host once per iteration, so it returns converged tensors
+            S, J, z = init.shape
+            t0 = obs.clock()
+            out = refine(adj, init, bv, so, bn, cap)
+            obs.span_at("solve_grouped", t0, obs.clock() - t0,
+                        backend=backend.name, S=S, J=J, z=z, mesh=desc)
+            return out
+
+        return solver, s_multiple
+
+    return make
 
 
 register_engine(EngineSpec(
@@ -190,22 +236,27 @@ register_engine(EngineSpec(
     description="host core.yen per pair through the shared PartialKSPCache",
 ))
 
+_TORCH_BACKEND = TorchBackend()
 register_engine(EngineSpec(
     name="dense_bf",
     refine=_grouped_refine,
     refine_async=_grouped_refine_async,
     packs_slab=True,
-    backend=TorchBackend(),
+    backend=_TORCH_BACKEND,
+    make_mesh_solver=_grouped_mesh_solver(_TORCH_BACKEND),
     description="plain PyTorch grouped [S, J, z] Bellman–Ford over "
                 "per-worker slabs",
 ))
 
+_CUDA_BACKEND = CudaBackend()
 register_engine(EngineSpec(
     name="cuda_bf",
     refine=_grouped_refine,
     refine_async=_grouped_refine_async,
     packs_slab=True,
-    backend=CudaBackend(),
+    backend=_CUDA_BACKEND,
+    make_mesh_solver=_grouped_mesh_solver(_CUDA_BACKEND),
     description="fused Hopper bf_solve_grouped kernel over 32-lane slabs "
-                "(its plain PyTorch version on CPU tensors)",
+                "(bf_relax_step iterated on a mesh; the kernels' plain "
+                "PyTorch versions on CPU tensors)",
 ))

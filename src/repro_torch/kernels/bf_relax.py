@@ -161,9 +161,11 @@ def solve_grouped(adj, init, banned_v, spur_onehot, banned_next, cap,
     int32, iters [S, ceil(J/jt)] int32: the relaxations each block ran,
     at most ``max_iters``, default z, the reference's iteration cap;
     list [S, ceil(J/jt)] int32: 1 where the block ran from its in-edge
-    list, 0 where a column over the list's budget made it run the dense
-    loop).  The kernel skips adjacency entries ≥ INF, which keeps every
-    byte for adj ≥ 0, init ≥ 0 and cap ≤ INF (``csrc/in_edges.cuh``)."""
+    list, 0 where it ran the dense loop).  The list skips adjacency
+    entries ≥ INF, which keeps every byte for adj ≥ 0 and init ≥ 0
+    (``csrc/in_edges.cuh``); a block where one of these fails, or a cap
+    exceeds INF (NaN included in each), or a column is over the list's
+    budget, runs the dense loop."""
     S, z, _ = adj.shape
     J = init.shape[1]
     dev = adj.device

@@ -129,7 +129,8 @@ def solve(adj, src, k: int, max_iters: int | None = None):
     (D [S,k,z] f32, iters [S] int32: the relaxations each row ran, at
     most ``max_iters``, default z·k+8 as in the reference; list [S]
     int32: 1 where the row ran from its in-edge list, 0 where a column
-    over the list's budget made it run the dense loop)."""
+    over the list's budget or a negative weight made it run the dense
+    loop)."""
     S, z, _ = adj.shape
     dev = adj.device
     _check_k(k)

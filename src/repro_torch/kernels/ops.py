@@ -65,13 +65,15 @@ def bf_solve_grouped(adj, init, banned_v, spur_onehot, banned_next, cap,
     relaxations each slab row ran (their maximum is the reference's
     global count).
 
-    The kernel relaxes only each row's finite entries (adj < INF), from
-    a list in shared memory.  That gives the plain version's bytes for
-    adj ≥ 0, init ≥ 0 and cap ≤ INF, which every caller meets (serving
-    caps are ``cand − pre + 1e-9`` or INF): a skipped term is ≥ INF, so
-    it can change a minimum only where the minimum already exceeds INF,
-    and there the cap clamp sends both to INF; in the parent epilogue it
-    can never be the argmin of a reached vertex (``csrc/in_edges.cuh``)."""
+    A block relaxes only its row's finite entries (adj < INF), from a
+    list in shared memory, where its weights are all ≥ 0, its initial
+    distances ≥ 0 and its caps ≤ INF (no NaN): every distance then stays
+    ≥ 0, so a skipped term is ≥ INF and never beats the relaxation's
+    minimum, which starts at INF; in the parent epilogue it can never be
+    the argmin of a reached vertex (``csrc/in_edges.cuh``).  The kernel
+    checks these per block and runs the dense loop over every entry where
+    one fails.  Both give the plain version's bytes.  ``max_iters=0`` on
+    a converged field returns the field and its parents."""
     args = (adj.float().contiguous(), init.float().contiguous(),
             banned_v.bool().contiguous(), spur_onehot.bool().contiguous(),
             banned_next.bool().contiguous(), cap.float().contiguous())
@@ -112,9 +114,10 @@ def ktrop_solve(adj, src, k: int, max_iters: int | None = None,
     row ran.
 
     The kernel folds only each row's finite entries (adj < INF), from a
-    list in shared memory: for adj ≥ 0 a skipped entry's candidates are
-    ≥ INF and are never among the k smallest distinct values below INF,
-    so the result is the plain version's, bit for bit."""
+    list in shared memory, where the row's weights are all ≥ 0: a
+    skipped entry's candidates are then ≥ INF and are never among the k
+    smallest distinct values below INF.  A row with a negative weight
+    folds every entry.  Both give the plain version's bytes."""
     adj = adj.float().contiguous()
     src = src.to(torch.int32).contiguous()
     if _on_cpu(adj):

@@ -22,12 +22,22 @@ def bf_relax_ref(dist, adj, spur_onehot, banned_next, cap):
 
     dist [S,J,z] f32; adj [S,z,z] f32; spur_onehot/banned_next [S,J,z]
     bool; cap [S,J] f32 → new dist [S,J,z].  A term d[u]+adj[u,v] is cut
-    where spur[u] and ban[v] are both set; values above the cap become
-    INF."""
+    where spur[u] and ban[v] are both set; the minimum over the terms
+    starts at INF, as the Pallas kernel's accumulator does (so +inf, from
+    a +inf distance or an INF+INF overflow, never comes out above a cap
+    of +inf); values above the cap become INF.
+
+    On +inf inputs under a cap of +inf this follows the reference's
+    Pallas kernel, not its plain ``ref.bf_relax_ref``, whose minimum
+    starts at +inf and so returns +inf there.  The plain engine's step
+    (``engine.dense.bf_step_grouped``, the ``dense_bf`` mesh body) keeps
+    that +inf start, as the reference's ``dense_bf`` does; the two
+    engines agree on every input with distances <= INF or caps <= INF,
+    which is all that serving gives them."""
     contrib = dist[:, :, :, None] + adj[:, None, :, :]
     cut = spur_onehot[:, :, :, None] & banned_next[:, :, None, :]
     contrib = torch.where(cut, INF, contrib)
-    new = torch.minimum(dist, contrib.amin(dim=2))
+    new = torch.minimum(dist, contrib.amin(dim=2).clamp(max=INF))
     return torch.where(new > cap[:, :, None], INF, new)
 
 

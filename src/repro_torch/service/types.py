@@ -262,8 +262,10 @@ class ServiceConfig:
     ``device`` is where slab engines keep their slabs and run their
     solves: the card by default, the CPU only when asked (``"cpu"``).
     Building a service for ``"cuda"`` on a host without a card raises;
-    nothing falls back.  A device mesh (``mesh``) is not ported yet:
-    setting one raises when the service is built.
+    nothing falls back.  A mesh is runtime configuration: supply ``mesh``
+    (a ``repro_torch.launch.mesh.DeviceMesh`` on devices of ``device``'s
+    type) to route a mesh-capable engine's refine through
+    ``repro_torch.dist.shard_refine`` over ``mesh_axis``.
     """
 
     engine: str = "pyen"

@@ -67,7 +67,7 @@ def list_relax(dist, lists, spur, ban, cap):
     c = _at_sources(dist, eu) + ew[:, None]
     c = torch.where(_at_sources(spur, eu) & ban[:, :, None, :], INF, c)
     c = torch.where(valid[:, None], c, POS_INF)
-    new = torch.minimum(dist, c.amin(dim=2))
+    new = torch.minimum(dist, c.amin(dim=2).clamp(max=INF))  # starts at INF
     return torch.where(new > cap[:, :, None], INF, new)
 
 
@@ -145,6 +145,40 @@ def list_ktrop_solve(adj, src, k, max_iters=None):
         if not bool(active.any()):
             break
     return D, iters
+
+
+def list_ok(adj):
+    """Per slab row: every kept weight (adj < INF) is ≥ 0, the check the
+    fused solves make as they build the list (a NaN is not kept)."""
+    return ~((adj < INF) & (adj < 0)).flatten(1).any(dim=1)
+
+
+def checked_bf_solve(adj, init, banned_v, spur, ban, cap):
+    """The fused BF solve as the kernel runs it (one block per slab row,
+    as at every J ≤ 32 here): from the list where the row's kept weights,
+    initial distances (after the banned-vertex mask) and caps pass the
+    checks (≥ 0, ≥ 0, ≤ INF; a NaN fails), else the dense loop.  Returns
+    (dist, parents, iters per row, list per row)."""
+    d0 = torch.where(banned_v, INF, init)
+    use = (list_ok(adj) & (d0 >= 0).flatten(1).all(dim=1)
+           & (cap <= INF).all(dim=1))
+    ld, lp, lit = list_bf_solve(adj, init, banned_v, spur, ban, cap)
+    dd, dp, dit = ref.bf_solve_grouped_ref(adj, init, banned_v, spur, ban,
+                                           cap, with_iters=True)
+    row = use.view(-1, 1, 1)
+    return (torch.where(row, ld, dd), torch.where(row, lp, dp),
+            torch.where(use, lit, dit), use)
+
+
+def checked_ktrop_solve(adj, src, k, max_iters=None):
+    """The fused ktrop solve as the kernel runs it: from the list where
+    the row's kept weights are all ≥ 0, else the dense loop.  Returns
+    (D, iters per row, list per row)."""
+    use = list_ok(adj)
+    lD, lit = list_ktrop_solve(adj, src, k, max_iters)
+    dD, dit = ref.ktrop_solve_ref(adj, src, k, max_iters)
+    return (torch.where(use.view(-1, 1, 1), lD, dD),
+            torch.where(use, lit, dit), use)
 
 
 # ---------------------------------------------------------------------------
@@ -276,3 +310,73 @@ class TestKtrop:
         want = np.asarray(jax_dense.ktrop_solve(
             jnp.asarray(adj), jnp.asarray(src), k, max_iters=3))
         np.testing.assert_array_equal(D.numpy(), want)
+
+
+# ---------------------------------------------------------------------------
+# inputs the fused solves must check before taking the list
+# ---------------------------------------------------------------------------
+def _bf_precondition_case(case):
+    """``bf_inputs(7, 2, 3, 24, 0.02, True)`` with one precondition of the
+    list broken: every INF initial distance +inf under caps of +inf; one
+    initial distance of -1e37 (row 1); one edge weight of -1e37 out of a
+    source (row 1).  Returns (inputs, the rows the kernel may run from
+    its list, whether the list alone keeps the bytes)."""
+    adj, init, bv, so, bn, cap = bf_inputs(7, 2, 3, 24, 0.02, True)
+    if case == "+inf distances, cap +inf":
+        init[init >= INF] = POS_INF
+        cap[:] = POS_INF
+        # the caps fail the check; with the accumulators starting at INF
+        # (the Pallas kernel's) a skipped term cannot win even so
+        return (adj, init, bv, so, bn, cap), [False, False], True
+    if case == "-1e37 distance":
+        init[1, 0, 1] = -1e37
+        bv[1, 0, 1] = False
+    else:  # a negative weight takes distances below 0 mid-solve
+        src = int(np.argmax(init[1, 0] == 0.0))
+        adj[1, src, (src + 1) % 24] = -1e37
+    return (adj, init, bv, so, bn, cap), [True, False], False
+
+
+class TestPreconditions:
+    @pytest.mark.parametrize("case", ["+inf distances, cap +inf",
+                                      "-1e37 distance", "-1e37 weight"])
+    def test_bf_solve_checks_its_inputs(self, case):
+        """Where a block's caps exceed INF, an initial distance is < 0 or
+        a kept weight is < 0, the fused BF solve runs its dense loop: the
+        checked solve gives repro's bytes (jnp and Pallas fixed points,
+        dist and parents) and the plain version's iterations, where the
+        list alone may not."""
+        args, rows, list_alone_exact = _bf_precondition_case(case)
+        targs = _t(*args)
+        d, p, it, use = checked_bf_solve(*targs)
+        assert use.tolist() == rows
+        wd, wp, wit = ref.bf_solve_grouped_ref(*targs, with_iters=True)
+        assert torch.equal(d, wd) and torch.equal(p, wp)
+        assert torch.equal(it, wit)
+        S, J, z = args[1].shape
+        jargs = [jnp.asarray(a) for a in args]
+        for jd, jp in (jax_grouped_solver(S, J, z)(*jargs),
+                       _pallas_grouped_solver(S, J, z, True)(*jargs)):
+            np.testing.assert_array_equal(d.numpy(), np.asarray(jd))
+            np.testing.assert_array_equal(p.numpy(), np.asarray(jp))
+        ld, _, _ = list_bf_solve(*targs)
+        assert np.array_equal(ld.numpy(), np.asarray(jd)) == list_alone_exact
+
+    def test_ktrop_solve_checks_its_weights(self):
+        """A row with a kept weight of -1e37 out of its source runs the
+        dense loop: the checked solve gives repro's D and the plain
+        version's iterations (k=4, 30 iterations), the list alone not."""
+        rng = np.random.default_rng(4)
+        adj = _vfrag_slab(rng, 3, 33, density=0.05)
+        src = rng.integers(33, size=3).astype(np.int32)
+        adj[0, src[0], (src[0] + 1) % 33] = -1e37
+        targs = _t(adj, src)
+        D, it, use = checked_ktrop_solve(*targs, 4, 30)
+        assert use.tolist() == [False, True, True]
+        wD, wit = ref.ktrop_solve_ref(*targs, 4, 30)
+        assert torch.equal(D, wD) and torch.equal(it, wit)
+        want = np.asarray(jax_dense.ktrop_solve(
+            jnp.asarray(adj), jnp.asarray(src), 4, max_iters=30))
+        np.testing.assert_array_equal(D.numpy(), want)
+        lD, _ = list_ktrop_solve(*targs, 4, 30)
+        assert not np.array_equal(lD.numpy(), want)

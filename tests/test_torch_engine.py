@@ -13,15 +13,17 @@ from repro.data.roadnet import grid_road_network as jax_grid
 from repro.dist.grouped_yen import grouped_ksp as jax_grouped_ksp
 from repro.engine import dense as jax_dense
 from repro.engine import layout as jax_layout
-from repro.engine.backend import JnpBackend
+from repro.engine.backend import JnpBackend, PallasBackend
 from repro_torch.convert import graph_from_numpy, slab_from_numpy
 from repro_torch.core.dtlp import DTLP
 from repro_torch.data.roadnet import WeightUpdateStream, grid_road_network
 from repro_torch.dist.cluster import Cluster
 from repro_torch.dist.grouped_yen import grouped_ksp
 from repro_torch.engine import dense, layout
-from repro_torch.engine.backend import CudaBackend, TorchBackend
+from repro_torch.engine.backend import (CudaBackend, SolverBackend,
+                                        TorchBackend)
 from repro_torch.engine.registry import available_engines, get_engine
+from repro_torch.launch.mesh import DeviceMesh, make_host_mesh
 from tests.test_backend import masked_slab
 
 # the reference's geometry for each port layout (same lane/J rules)
@@ -31,6 +33,10 @@ _JAX_TWIN = {
                                          j_align=8, j_max=32),
 }
 _LAYOUTS = [layout.PLAIN_LAYOUT, layout.HOPPER_LAYOUT]
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
 
 
 def _port_graph(g):
@@ -156,8 +162,32 @@ class TestBackends:
         assert get_engine("dense_bf").layout is layout.PLAIN_LAYOUT
         assert get_engine("pyen").layout is layout.PLAIN_LAYOUT
         assert get_engine("cuda_bf").packs_slab
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_engine("cuda_bf").backend.mesh_relax()
+        assert get_engine("cuda_bf").supports_mesh
+        assert get_engine("dense_bf").supports_mesh
+        assert not get_engine("pyen").supports_mesh
+        # each backend's mesh body is one relaxation of its fixed point:
+        # the Pallas kernel's step, then the banned-vertex re-mask (the
+        # jnp step clamps at the cap inside the body), bitwise
+        rng = np.random.default_rng(4)
+        adj, init, bv, so, bn, cap = masked_slab(rng, 2, 3, 24)
+        d0 = np.where(bv, float(jax_dense.INF), init).astype(np.float32)
+        jargs = [jnp.asarray(a) for a in (d0, adj, bv, so, bn, cap)]
+        for name, twin in (("cuda_bf", PallasBackend(interpret=True)),
+                           ("dense_bf", JnpBackend())):
+            prep, step, parents = get_engine(name).backend.mesh_relax()
+            jprep, jstep = twin.mesh_relax()
+            so_p, bn_p = prep(*_t(so, bn))
+            got = step(*_t(d0, adj, bv), so_p, bn_p, *_t(cap))
+            want = jstep(jargs[0], jargs[1], jargs[2], *jprep(*jargs[3:5]),
+                         jargs[5])
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+            np.testing.assert_array_equal(
+                parents(*_t(adj, got.numpy(), bv, so, bn, cap)).numpy(),
+                np.asarray(jax_dense.bf_parents_grouped(
+                    jnp.asarray(adj), want, jnp.asarray(so),
+                    jnp.asarray(bn))))
+        with pytest.raises(NotImplementedError):
+            SolverBackend().mesh_relax()
         with pytest.raises(ValueError, match="unknown engine"):
             get_engine("pallas_bf")
 
@@ -230,9 +260,22 @@ class TestClusterSlabs:
                                           w.prev_slab.adj)
 
     def test_mesh_and_missing_card_raise(self):
+        """A meshless engine refuses a mesh with the reference's message
+        (``tests/test_service.py``); a mesh on another device type than
+        the cluster's is refused; a mesh-capable engine takes it and
+        splits its slab copies; the card is never faked."""
         d = DTLP.build(grid_road_network(6, 6, seed=0), z=12, xi=4)
-        with pytest.raises(ValueError, match="device-mesh"):
-            Cluster(d, 2, engine="cuda_bf", device="cpu", mesh=object())
+        with pytest.raises(ValueError, match="has no device-mesh path"):
+            Cluster(d, 2, engine="pyen", device="cpu", mesh=object())
+        mesh = make_host_mesh(2, device="cpu")
+        cl = Cluster(d, 2, engine="cuda_bf", device="cpu", mesh=mesh)
+        for w in cl.workers:
+            if w.slab is not None:
+                assert isinstance(w.slab.adj_dev, dense.ShardedMirror)
+                assert w.solver is not None and w.s_multiple == 2
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="cuda"):
                 Cluster(d, 2, engine="cuda_bf")
+            with pytest.raises(ValueError, match="device type"):
+                Cluster(d, 2, engine="cuda_bf", device="cpu",
+                        mesh=DeviceMesh([torch.device("cuda")]))

@@ -1,8 +1,9 @@
 """repro_torch stands alone: it imports neither ``jax`` nor anything of
 the reference package ``repro``, runs on the card unless asked for the
 CPU, and never falls back from one to the other.  ``chip_smoke.py``, the
-port's on-card check, follows the same import rule and refuses to run
-without a card."""
+port's on-card check, and the example twins (``examples/torch_*.py``)
+follow the same import rule; the smoke script refuses to run without a
+card."""
 
 import ast
 import os
@@ -34,8 +35,9 @@ def _forbidden(module: str) -> bool:
     return any(module == f or module.startswith(f + ".") for f in _FORBIDDEN)
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [
-    ROOT / "chip_smoke.py"], ids=lambda p: str(p.relative_to(ROOT)))
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + sorted(
+    (ROOT / "examples").glob("torch_*.py")) + [ROOT / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     bad = [m for m in _imported_modules(path) if _forbidden(m)]
     assert not bad, f"{path} imports {bad}"
@@ -45,7 +47,9 @@ def test_import_leaves_jax_and_reference_unloaded():
     code = (
         "import sys\n"
         "import repro_torch.service, repro_torch.convert, "
-        "repro_torch.kernels.ops, repro_torch.configs.registry\n"
+        "repro_torch.kernels.ops, repro_torch.configs.registry, "
+        "repro_torch.launch.serve, repro_torch.launch.mesh, "
+        "repro_torch.data.dimacs, repro_torch.dist.shard_refine\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') or "
         "m.startswith(('jax.', 'repro.')))\n"
         "print(bad)\n"

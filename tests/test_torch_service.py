@@ -2,7 +2,10 @@
 bench_backend_compare``.  One trace — queries, one UpdateBatch, queries —
 through the reference ``dense_bf`` and through the port's ``cuda_bf`` and
 ``dense_bf`` on the CPU device; the ``(paths, epoch)`` lists must be
-equal in both update modes with the pipeline on and off."""
+equal in both update modes with the pipeline on and off, and on a
+2-shard CPU mesh (the port's form of ``test_backend.py``'s
+``test_service_level`` and ``test_streaming.py``'s updates-under-mesh
+tests)."""
 
 import numpy as np
 import pytest
@@ -12,8 +15,12 @@ import repro_torch.service as torch_service
 from repro.core.dtlp import DTLP as JaxDTLP
 from repro.data.roadnet import WeightUpdateStream as JaxStream
 from repro.data.roadnet import grid_road_network as jax_grid
+from repro.dist.cluster import Cluster as JaxCluster
 from repro_torch.core.dtlp import DTLP
 from repro_torch.data.roadnet import WeightUpdateStream, grid_road_network
+from repro_torch.dist.cluster import Cluster
+from repro_torch.engine.dense import ShardedMirror
+from repro_torch.launch.mesh import make_host_mesh
 
 _N = 8
 
@@ -25,12 +32,12 @@ def _queries(n_vertices, n, seed=3):
 
 
 def _trace(port: bool, engine: str, update_mode: str, pipeline: bool,
-           requests=None):
+           requests=None, mesh=None):
     """Replay the trace on a fresh 6x6 grid; returns [(paths, epoch)]."""
     api = torch_service if port else jax_service
     g = (grid_road_network if port else jax_grid)(6, 6, seed=0)
     d = (DTLP if port else JaxDTLP).build(g, z=12, xi=4)
-    kw = {"device": "cpu"} if port else {}
+    kw = {"device": "cpu", "mesh": mesh} if port else {}
     svc = api.KSPService(d, api.ServiceConfig(
         engine=engine, n_workers=2, max_in_flight=4, pipeline=pipeline,
         update_mode=update_mode, **kw))
@@ -72,3 +79,83 @@ def test_mixed_variant_burst_equals_reference():
     want = _trace(False, "dense_bf", "barrier", True, burst(jax_service))
     got = _trace(True, "cuda_bf", "barrier", True, burst(torch_service))
     assert got == want
+
+
+@pytest.mark.parametrize("update_mode", ["barrier", "streaming"])
+@pytest.mark.parametrize("engine", ["cuda_bf", "dense_bf"])
+def test_mesh_serving_equals_reference(engine, update_mode):
+    """On a 2-shard CPU mesh (slab copies split over the shards, rounds
+    padded to a multiple of 2, the mesh refine iterating the engine's
+    relaxation) the port serves repro's dense_bf (paths, epoch)."""
+    want = _trace(False, "dense_bf", update_mode, True)
+    got = _trace(True, engine, update_mode, True,
+                 mesh=make_host_mesh(2, device="cpu"))
+    assert got == want
+
+
+def _run_mixed(port: bool, mesh=None):
+    """Updates landing mid-flight (``wait=False``) in streaming mode, as
+    ``tests/test_streaming.py::run_mixed``: {qid: (paths, epoch)}."""
+    api = torch_service if port else jax_service
+    g = (grid_road_network if port else jax_grid)(6, 6, seed=0)
+    kw = {"device": "cpu", "mesh": mesh} if port else {}
+    svc = api.KSPService.build(g, api.ServiceConfig(
+        engine="dense_bf", n_workers=4, z=12, xi=4,
+        update_mode="streaming", pipeline=True, **kw))
+    stream = (WeightUpdateStream if port else JaxStream)(
+        g, alpha=0.5, tau=0.5, seed=7)
+    done, sent = [], 0
+    for i, (s, t, _) in enumerate(_queries(g.n, 12)):
+        svc.submit(api.QueryRequest(s, t, 3))
+        if i % 4 == 3 and sent < 3:
+            svc.update(api.UpdateBatch(*stream.next_batch()), wait=False)
+            sent += 1
+        done.extend(svc.tick())
+    done.extend(svc.drain())
+    assert svc.epoch == 3
+    return {tk.qid: (tk.result.paths, tk.result.epoch) for tk in done
+            if tk.result is not None}
+
+
+def test_streaming_under_mesh_equals_reference():
+    want = _run_mixed(False)
+    assert _run_mixed(True, mesh=make_host_mesh(2, device="cpu")) == want
+
+
+@pytest.mark.parametrize("engine", ["cuda_bf", "dense_bf"])
+def test_kill_revive_resync_under_mesh(engine):
+    """A worker that missed a streaming batch re-syncs its split slab
+    copy on revival: queries answer as repro's cluster does, and every
+    copy equals its host slab, row for row, filler rows aside."""
+
+    def run(port):
+        g = (grid_road_network if port else jax_grid)(6, 6, seed=5)
+        d = (DTLP if port else JaxDTLP).build(g, z=12, xi=4)
+        kw = ({"device": "cpu", "mesh": make_host_mesh(2, device="cpu")}
+              if port else {})
+        cl = (Cluster if port else JaxCluster)(
+            d, n_workers=3, engine=engine if port else "dense_bf", **kw)
+        stream = (WeightUpdateStream if port else JaxStream)(
+            g, alpha=0.5, tau=0.5, seed=3)
+        cl.kill(1)
+        dead = cl.workers[1]
+        cl.apply_updates_streaming(*stream.next_batch())  # missed
+        assert dead.epoch == 0 and len(dead.pending) == 1
+        cl.revive(1)
+        dead.ensure_epoch()  # lazy resync replays the missed batch
+        assert dead.epoch == 1 and dead.stats.resyncs == 1
+        # pairs whose host join stays short: after this 50% update some
+        # pairs of the grid take tens of seconds of it (ROADMAP queue 1,
+        # item 11), which is host work this test does not check
+        return [cl.query(s, t, 3) for s, t in ((14, 31), (2, 20), (30, 5))], cl
+
+    want, _ = run(False)
+    got, cl = run(True)
+    assert got == want
+    for w in cl.workers:
+        if w.slab is None:
+            continue
+        assert isinstance(w.slab.adj_dev, ShardedMirror)
+        S = w.slab.adj.shape[0]
+        np.testing.assert_array_equal(
+            w.slab.adj_dev.full().numpy()[:S], w.slab.adj)

@@ -308,15 +308,20 @@ class TestBellmanFordStep:
 
     def test_infinite_cap_needs_the_dense_path(self):
         """With cap = +inf nothing clamps: at v=2 (distance +inf, no
-        in-edge) the dense scan gives 0 + INF = INF, the list keeps +inf."""
+        in-edge) the dense scan gives 0 + INF = INF, and so does the list,
+        whose minimum starts at INF as the Pallas kernel's does (a list
+        starting at +inf kept +inf there).  The kernel's cap check still
+        sends the block dense; both equal the plain step and Pallas."""
         adj, dist, no, cap = self._one_edge()
         dist[0, 0, 2] = POS_INF
         cap[:] = POS_INF
         args = _t(dist, adj, no, no, cap)
         want = ref.bf_relax_ref(*args)
         assert float(want[0, 0, 2]) == INF
-        assert not torch.equal(list_relax(args[0], in_edge_lists(args[1]),
-                                          *args[2:]), want)
+        assert torch.equal(list_relax(args[0], in_edge_lists(args[1]),
+                                      *args[2:]), want)
+        np.testing.assert_array_equal(want.numpy(),
+                                      _pallas_bf(dist, adj, no, no, cap))
         got, path = emulate_bf_step(*args, 1, 4)
         assert torch.equal(got, want) and path.tolist() == [[0]]
         cap[:] = INF  # with cap <= INF the same input may take the list
