@@ -81,7 +81,18 @@ phase that does not hold:
    ``bound_dist_seq_ref`` on that chunk, under a permutation of all the
    queries and over two launches, its grouping against
    ``group_by_subgraph``; the step, the profile sort, the grouping and the
-   evaluation timed; then ``kspdg_smoke(device="cuda")``.
+   evaluation timed; then ``kspdg_smoke(device="cuda")``;
+9. LM serving (plain PyTorch: this path reaches no TPU kernel):
+   starcoder2-3b at full width and depth from a seeded generator, a
+   128-token prompt decoded one token per step against the full forward
+   (``lm_backbone`` + unembed) within 8e-2 on the logits, 12 requests
+   (prompts of 16-128 tokens, 32 new each) through ``DecodeServer`` with
+   8 slots and max_len 4096 (every token greedy given its prefix), the
+   B=8 decode step timed beside its weight-read bound; gemma3-27b at full
+   width cut to 6 layers, 1,100 positions through the mixed per-layer
+   cache and the stacked cache, within 5e-2 of each other; one train and
+   decode step of the moonshot (MoE) and deepseek-v3 (MoE, MLA, MTP)
+   smoke configs.
 
 It imports nothing of JAX or of the reference package.  Without a card
 it exits non-zero and prints no result.  The last three lines are the
@@ -1595,6 +1606,220 @@ def phase_kspdg_smoke():
     log(f"[kspdg_smoke] engine_ksp on the card equals host Yen: {out}")
 
 
+# ---------------------------------------------------------------------------
+# LM serving (no TPU kernel on this path: plain PyTorch on the card)
+# ---------------------------------------------------------------------------
+# Teacher-forced decode against the full forward: two bf16 evaluations of
+# one 30-layer model whose products round in other orders (one row against
+# 128).  bf16 keeps 8 significant bits: at |logit| in [4, 8) an ulp is
+# 2^-5 = 0.031, and the bound is 2.5 of them, 8e-2 — the reference's own
+# bound for two such evaluations (tests/test_serve.py, MLA decode parity).
+# scripts/lm_decode_error.py measures each against a float32 forward.
+LM_DECODE_ATOL = 8e-2
+# The mixed against the stacked cache: one evaluation but for the order of
+# the attention sums; the reference's bound (tests/test_serve.py).
+LM_CACHE_ATOL = 5e-2
+LM_SLOTS, LM_MAX_LEN, LM_PROMPT, LM_NEW, LM_REQUESTS = 8, 4096, 128, 32, 12
+GEMMA_LAYERS, GEMMA_POSITIONS = 6, 1100
+
+
+def lm_logits(torch, T, params, cfg, tokens):
+    """Every position's logits [S, V] (float32) from one full forward."""
+    with torch.no_grad():
+        h, _ = T.lm_backbone(params, tokens[None], cfg)
+        return (h[0] @ T._unembed(params, cfg).to(torch.bfloat16)).float()
+
+
+def check_greedy(logits, tokens, what):
+    """Each token is the argmax of its logits, or within 2 x the bound of
+    it where the top two are that close (a bf16 tie may go either way)."""
+    best = logits.max(dim=-1).values
+    mine = logits.gather(-1, tokens[:, None])[:, 0]
+    check(bool((mine >= best - 2 * LM_DECODE_ATOL).all()),
+          (what, "a served token is not greedy",
+           float((best - mine).max())))
+
+
+def lm_teacher_forced(torch, np, T, params, cfg, dev):
+    """Decode a 128-token prompt one token per step and hold each
+    position's logits against the full forward on the same prefix."""
+    rng = np.random.default_rng(SEED)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, LM_PROMPT)).to(dev)
+    fwd = lm_logits(torch, T, params, cfg, prompt)
+    cache = T.init_cache(T.cache_spec(cfg, 1, LM_MAX_LEN), dev)
+    dec = torch.empty_like(fwd)
+    for pos in range(LM_PROMPT):
+        lg, cache = T.lm_decode_step(params, cache, prompt[pos].view(1, 1),
+                                     pos, cfg)
+        dec[pos] = lg[0].float()
+    check(bool(torch.isfinite(dec).all() and torch.isfinite(fwd).all()),
+          "NaN in the teacher-forced logits")
+    err = max_abs_err(torch, dec, fwd)
+    check(err <= LM_DECODE_ATOL, ("teacher-forced decode vs forward", err))
+    top2 = fwd.topk(2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) > 2 * LM_DECODE_ATOL
+    check(bool((dec.argmax(-1) == fwd.argmax(-1))[sure].all()),
+          "teacher-forced argmax differs where the margin is clear")
+    return err, float(fwd.abs().max()), int(sure.sum())
+
+
+def lm_serve_requests(torch, np, T, params, cfg, dev):
+    """12 requests (prompts of 16-128 tokens, 32 new each) through a
+    DecodeServer of 8 slots; every request finishes, slots are recycled,
+    and every served token is greedy given its own prefix."""
+    from repro_torch.serve.engine import DecodeServer, Request
+
+    rng = np.random.default_rng(SEED + 1)
+    reqs = [Request(rid=i, prompt=[int(x) for x in rng.integers(
+        0, cfg.vocab, int(rng.integers(16, LM_PROMPT + 1)))],
+        max_new=LM_NEW) for i in range(LM_REQUESTS)]
+    srv = DecodeServer(params, cfg, batch_slots=LM_SLOTS,
+                       max_len=LM_MAX_LEN, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done, steps = srv.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(len(done) == LM_REQUESTS and srv.active == 0,
+          ("requests left unserved", len(done), srv.active))
+    check(all(r.done and len(r.out) == LM_NEW for r in reqs),
+          "a request did not get its 32 tokens")
+    for r in reqs:
+        toks = torch.tensor(r.prompt + r.out, device=dev)
+        logits = lm_logits(torch, T, srv.params, cfg, toks[:-1])
+        check_greedy(logits[len(r.prompt) - 1:], toks[len(r.prompt):],
+                     ("request", r.rid))
+    return srv, steps, wall
+
+
+def lm_decode_timing(torch, T, srv, cfg, dev):
+    """One decode step at B=8 on the server's weights and cache (positions
+    200-207): the median CUDA-event time, and the median host time to
+    enqueue it (no synchronisation inside): when the two are equal, the
+    card waits on the host."""
+    tokens = torch.arange(LM_SLOTS, device=dev).view(LM_SLOTS, 1)
+    pos = torch.arange(200, 200 + LM_SLOTS, device=dev)
+
+    def step():
+        return T.lm_decode_step(srv.params, srv.cache, tokens, pos, cfg)
+
+    for _ in range(3):
+        step()
+    enqueue = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        enqueue.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return cuda_ms(torch, step, 20), statistics.median(enqueue)
+
+
+def lm_mixed_vs_stacked(torch, np, T, cfg, dev):
+    """gemma3-27b at full width, 6 layers (5 local, 1 global): 1,100
+    positions (past the 1,024 window) through the per-layer mixed cache
+    and through the stacked cache, on the same tokens."""
+    from repro_torch.models.common import DEFAULT_POLICY
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = T.compute_copy(T.init_lm(gen, cfg, DEFAULT_POLICY, device=dev))
+    max_len = GEMMA_POSITIONS + 52
+    mixed = T.init_cache(T.cache_spec_mixed(cfg, 1, max_len), dev)
+    stacked = T.init_cache(T.cache_spec(cfg, 1, max_len), dev)
+    check([c["k"].shape[1] for c in mixed] == [cfg.window] * 5 + [max_len],
+          "gemma3 6-layer mixed cache sizes")
+    toks = torch.from_numpy(np.random.default_rng(SEED + 2).integers(
+        0, cfg.vocab, GEMMA_POSITIONS)).to(dev)
+    worst = torch.zeros((), device=dev)
+    same = torch.zeros((), dtype=torch.int64, device=dev)
+    t0 = time.perf_counter()
+    for pos in range(GEMMA_POSITIONS):
+        t = toks[pos].view(1, 1)
+        lm, mixed = T.lm_decode_step(params, mixed, t, pos, cfg)
+        ls, stacked = T.lm_decode_step(params, stacked, t, pos, cfg)
+        worst = torch.maximum(worst, (lm.float() - ls.float()).abs().max())
+        same += (lm == ls).all()  # on the card: no host sync per step
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    worst = float(worst)
+    check(np.isfinite(worst) and worst <= LM_CACHE_ATOL,
+          ("gemma3 mixed vs stacked cache", worst))
+    return worst, int(same), wall, params
+
+
+def phase_lm_serving(torch, np, dev, smi):
+    """The LM serving path on the card: starcoder2-3b at full width and
+    depth (teacher-forced decode, 12 requests through DecodeServer, the
+    B=8 decode step timed), gemma3-27b at full width cut to 6 layers
+    (mixed vs stacked cache), and one train and decode step of the MoE
+    and MLA smoke configs."""
+    import dataclasses
+
+    from repro_torch.configs import gemma3_27b, starcoder2_3b
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import (DEFAULT_POLICY, count_params,
+                                           tree_bytes)
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = starcoder2_3b.CFG
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    master = T.init_lm(gen, cfg, DEFAULT_POLICY, device=dev)
+    check(count_params(master) == cfg.param_count(), "starcoder2 params")
+    params = T.compute_copy(master)
+    torch.cuda.synchronize()
+    n_params, f32_bytes = count_params(master), tree_bytes(master)
+    del master
+    weight_bytes = tree_bytes(params)
+    log(f"[lm_serving] starcoder2-3b: {cfg.n_layers} layers, d={cfg.d_model},"
+        f" {n_params:,} params ({f32_bytes / 1e9:.2f} GB float32, bf16 copy "
+        f"{weight_bytes / 1e9:.2f} GB) made from seed {SEED} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    err, logit_max, sure = lm_teacher_forced(torch, np, T, params, cfg, dev)
+    log(f"[lm_serving] teacher-forced decode of {LM_PROMPT} positions vs the "
+        f"forward: max |dlogit| {err:.4f} (bound {LM_DECODE_ATOL}, |logit| <= "
+        f"{logit_max:.2f}); argmax equal at all {sure} clear positions")
+    srv, steps, wall = lm_serve_requests(torch, np, T, params, cfg, dev)
+    n_tok = LM_REQUESTS * LM_NEW
+    log(f"[lm_serving] DecodeServer ({LM_SLOTS} slots, max_len {LM_MAX_LEN}):"
+        f" {LM_REQUESTS} requests, {n_tok} tokens in {steps} steps, "
+        f"{wall:.2f} s ({n_tok / wall:.1f} new tokens/s, "
+        f"{steps * LM_SLOTS / wall:.1f} slot-steps/s); every token greedy")
+    step_ms, enqueue_ms = lm_decode_timing(torch, T, srv, cfg, dev)
+    cache_bytes = tree_bytes(srv.cache)
+    peak = torch.cuda.max_memory_allocated()
+    bound = weight_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"[lm_serving] decode step B={LM_SLOTS}: {step_ms:.3f} ms median "
+        f"({LM_SLOTS / step_ms * 1e3:.1f} tokens/s; the host takes "
+        f"{enqueue_ms:.3f} ms to enqueue it); weight-read bound "
+        f"{bound:.3f} ms ({weight_bytes / 1e9:.2f} GB bf16 at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; the {cache_bytes / 1e9:.2f} GB "
+        f"ring cache read too: {(weight_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3:.3f} ms);"
+        f" peak {peak / 1e9:.2f} GB; {smi}")
+    del srv, params
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    gcfg = dataclasses.replace(gemma3_27b.CFG, n_layers=GEMMA_LAYERS)
+    worst, same, wall, gparams = lm_mixed_vs_stacked(torch, np, T, gcfg, dev)
+    log(f"[lm_serving] gemma3-27b x{GEMMA_LAYERS} layers (5 local of window "
+        f"{gcfg.window}, 1 global; {gcfg.param_count():,} params, bf16 "
+        f"{tree_bytes(gparams) / 1e9:.2f} GB): {GEMMA_POSITIONS} positions, "
+        f"mixed vs stacked cache max |dlogit| {worst:.4f}, bitwise equal at "
+        f"{same}/{GEMMA_POSITIONS}; {wall:.2f} s for both; peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del gparams
+    torch.cuda.empty_cache()
+    for name in ("moonshot-v1-16b-a3b", "deepseek-v3-671b"):
+        out = get_arch(name).smoke_fn(device="cuda")
+        log(f"[lm_serving] {name} smoke (MoE{', MLA, MTP' if 'v3' in name else ''})"
+            f" on the card: 3 train steps and a decode step, losses "
+            f"{[round(x, 4) for x in out['losses']]}")
+    log(f"[lm_serving] phase passed in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -1650,6 +1875,8 @@ def main() -> int:
     timings["bf_relax_step"]["mesh_serving"] = mesh_serving
     timings["bf_solve_grouped"]["serving"] = serving_stats
     phase_kspdg_smoke()
+    torch.cuda.empty_cache()
+    phase_lm_serving(torch, np, dev, smi)
 
     sources = {  # kernel -> (CUDA source, the TPU kernel it replaces)
         "bf_relax_step": ("bf_relax.cu", "src/repro/kernels/bf_relax.py:69"),

@@ -1,6 +1,13 @@
 """Importing this module populates the arch registry (see base.py).
 
-Only the paper's own architecture (the KSP data plane) is ported so far;
-the reference's LM, GNN and BST families follow with their models."""
+The five LM architectures and the paper's own (the KSP data plane) are
+ported; the reference's GNN and BST families follow with their models."""
 
+from . import deepseek_coder_33b  # noqa: F401
+from . import deepseek_v3_671b  # noqa: F401
+from . import gemma3_27b  # noqa: F401
+from . import moonshot_v1_16b_a3b  # noqa: F401
+from . import starcoder2_3b  # noqa: F401
+
+# the paper's own architecture (KSP refine data plane) registers here too
 from . import kspdg_arch  # noqa: F401

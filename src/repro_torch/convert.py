@@ -1,22 +1,31 @@
-"""Carry the reference package's state into the port.
+"""Carry the reference package's state into the port, and back.
 
-``repro`` has no model weights: its state is the road graph and the
-packed subgraph slabs.  Both cross as plain numpy arrays, so this module
-needs nothing of ``repro`` itself.
+Everything crosses as plain numpy arrays, so this module needs nothing
+of ``repro`` itself: the road graph and the packed subgraph slabs of the
+KSP system, and the LM parameter and optimizer trees (nested dicts with
+the reference's keys, dtypes kept).  numpy has no bfloat16: a bf16 leaf
+arrives as an ``ml_dtypes`` array (the reference's own) or as raw 2-byte
+void data, and leaves as its uint16 bit patterns unless the caller names
+a numpy bfloat16 dtype to view them as.
 
     g_port = graph_from_numpy({"n": g.n, "edge_u": g.edge_u,
                                "edge_v": g.edge_v, "w": g.w,
                                "directed": g.directed})
     slab = slab_from_numpy(ref_slab.adj, ref_slab.nv, ref_slab.gids,
                            ref_slab.z, ref_slab.epoch, device="cuda")
+    params = lm_params_from_numpy(jax.tree.map(np.asarray, ref_params),
+                                  cfg, device="cuda")
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .core.graph import Graph
 from .engine.dense import SubgraphSlab, place_slab
+from .models import transformer as T
+from .models.common import DEFAULT_POLICY, tree_map
 
 
 def graph_from_numpy(arrays: dict) -> Graph:
@@ -45,3 +54,65 @@ def slab_from_numpy(adj, nv, gids, z: int, epoch: int = 0,
         epoch=int(epoch),
     )
     return place_slab(slab, device)
+
+
+def _is_bf16(a: np.ndarray) -> bool:
+    return a.dtype.name == "bfloat16" or (a.dtype.kind == "V"
+                                         and a.dtype.itemsize == 2)
+
+
+def tree_from_numpy(tree, device="cuda"):
+    """A tree of numpy arrays as tensors on ``device``, dtypes kept."""
+    def one(a):
+        a = np.asarray(a)
+        if _is_bf16(a):
+            bits = torch.from_numpy(a.view(np.int16).copy())
+            return bits.view(torch.bfloat16).to(device)
+        return torch.from_numpy(a.copy()).to(device)
+
+    return tree_map(one, tree)
+
+
+def tree_to_numpy(tree, bf16=None):
+    """A tree of tensors as numpy arrays; bf16 leaves as uint16 bits, or
+    viewed as ``bf16`` (a numpy bfloat16 dtype) when one is given.  The
+    inverse of :func:`lm_params_from_numpy` and
+    :func:`opt_state_from_numpy`."""
+    def one(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            bits = t.view(torch.int16).numpy().view(np.uint16)
+            return bits.view(bf16) if bf16 is not None else bits.copy()
+        return t.numpy().copy()
+
+    return tree_map(one, tree)
+
+
+def _check_like(tree, like, where="params"):
+    """``tree`` has the keys and shapes of ``like`` (a meta init)."""
+    if isinstance(like, dict):
+        if not isinstance(tree, dict) or set(tree) != set(like):
+            got = sorted(tree) if isinstance(tree, dict) else type(tree)
+            raise ValueError(f"{where}: keys {got}, expected {sorted(like)}")
+        for k in like:
+            _check_like(tree[k], like[k], f"{where}/{k}")
+    elif tuple(np.shape(tree)) != tuple(like.shape):
+        raise ValueError(f"{where}: shape {tuple(np.shape(tree))}, expected "
+                         f"{tuple(like.shape)}")
+
+
+def lm_params_from_numpy(tree, cfg: T.LMConfig, device="cuda"):
+    """The reference's ``init_lm`` tree (numpy leaves) as the port's
+    parameters for ``cfg``: the same keys, shapes and dtypes (inverse:
+    :func:`tree_to_numpy`)."""
+    _check_like(tree, T.init_lm(0, cfg, DEFAULT_POLICY, device="meta"))
+    return tree_from_numpy(tree, device)
+
+
+def opt_state_from_numpy(tree, cfg: T.LMConfig, device="cuda"):
+    """The reference's ``init_opt`` state (``{"m", "v", "step"}``, numpy
+    leaves) for a model of ``cfg`` as the port's."""
+    like = T.init_lm(0, cfg, DEFAULT_POLICY, device="meta")
+    _check_like(tree["m"], like, "m")
+    _check_like(tree["v"], like, "v")
+    return tree_from_numpy(tree, device)

@@ -49,7 +49,9 @@ def test_import_leaves_jax_and_reference_unloaded():
         "import repro_torch.service, repro_torch.convert, "
         "repro_torch.kernels.ops, repro_torch.configs.registry, "
         "repro_torch.launch.serve, repro_torch.launch.mesh, "
-        "repro_torch.data.dimacs, repro_torch.dist.shard_refine\n"
+        "repro_torch.data.dimacs, repro_torch.dist.shard_refine, "
+        "repro_torch.models.transformer, repro_torch.serve.engine, "
+        "repro_torch.train.steps, repro_torch.ckpt.checkpoint\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') or "
         "m.startswith(('jax.', 'repro.')))\n"
         "print(bad)\n"
