@@ -92,7 +92,36 @@ phase that does not hold:
    width cut to 6 layers, 1,100 positions through the mixed per-layer
    cache and the stacked cache, within 5e-2 of each other; one train and
    decode step of the moonshot (MoE) and deepseek-v3 (MoE, MLA, MTP)
-   smoke configs.
+   smoke configs;
+10. training (plain PyTorch: this path reaches no TPU kernel either),
+   every family at its published widths and depths from seeded
+   generators, every input made with numpy through
+   ``repro_torch.data.pipeline``: gin-tu on a Cora-sized graph (2,708
+   nodes, 10,556 directed edges, 1,433 features), dimenet on
+   ``molecule_batch(128, 30, 64)`` with its triplets, graphsage-reddit on
+   five fresh ``NeighborSampler`` blocks (1,024 seeds, fanouts 15-10) of a
+   232,965-node host graph with Reddit's 114,615,892 directed edges, and
+   meshgraphnet on one such block, both padded to the minibatch_lg cell
+   (169,984 nodes, 168,960 edges): 5 AdamW steps each; BST at
+   ``bst_arch.CFG`` (10M x 32 item table, 1M x 32 profile table) on
+   65,536 ``ClickStream`` examples: 3 dense AdamW steps over every
+   parameter and 3 ``bst_sparse_train_step``s, then ``bst_serve`` at 512
+   examples and ``bst_retrieval`` over 1,000,000 candidates.  Each
+   case's first step's loss and gradient norm within rtol 1e-4 of the
+   port's own CPU run of the same step (meshgraphnet on a 128-seed block,
+   BST on the first 4,096 examples), serve probabilities within 1e-5 of
+   the CPU's, every loss finite, the loss after the last step below the
+   first where a case repeats its batch; the sparse steps leave every
+   untouched row bit-identical and move every row of the first batch;
+   each case prints a ``[training]`` line with its median step ms (CUDA
+   events) and peak memory, and meshgraphnet's and BST's steps are traced
+   by ``torch.profiler`` (kernels per step, the device's busy share,
+   kernel time by category).  Then ``python -m repro_torch.launch.train
+   --arch gin-tu --steps 10 --ckpt-every 5`` and the same with
+   ``--resume --steps 15`` (which must print "resumed from step 10" and
+   "done: 15 steps"), and ``examples/torch_train_lm_resume.py`` on the
+   card (the resumed run equal to the uninterrupted one within rtol
+   1e-5).
 
 It imports nothing of JAX or of the reference package.  Without a card
 it exits non-zero and prints no result.  The last three lines are the
@@ -1820,6 +1849,521 @@ def phase_lm_serving(torch, np, dev, smi):
     log(f"[lm_serving] phase passed in {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Training (no TPU kernel on this path: plain PyTorch on the card)
+# ---------------------------------------------------------------------------
+# The card against the port's own CPU run of the same step on the same
+# params and batch: the first step's loss and global gradient norm.  Both
+# are float32 sums taken in other orders (CUDA's index_add_ adds in no
+# fixed order, the products block differently): 1e-4 relative.
+TRAIN_RTOL = 1e-4
+SERVE_ATOL = 1e-5  # BST CTR probabilities, card vs CPU
+RETRIEVAL_RTOL = 1e-5  # retrieval scores, of the largest |score|
+GNN_STEPS, BST_STEPS = 5, 3
+# the train driver's peak learning rate, reached over the 5 steps: a step
+# of 1e-3 from the first one sends dimenet's untrained loss (about 4.6e3)
+# up 20x (a CPU run of the port)
+TRAIN_LR, TRAIN_WARMUP = 3e-4, GNN_STEPS
+# Reddit, the minibatch_lg host graph: its nodes and its 114,615,892
+# directed edges, generated whole (no cut); the sampled block is padded to
+# the cell's 169,984 nodes and 168,960 edges
+REDDIT_NODES, REDDIT_EDGES = 232_965, 114_615_892
+CORA_NODES, CORA_EDGES = 2_708, 10_556  # gin-tu's full_graph_sm
+MOLECULES, ATOMS, MOLECULE_EDGES = 128, 30, 64  # dimenet's molecule shape
+# the CPU opinion of the two largest cases runs on a slice: meshgraphnet
+# on a block of 128 seeds padded to 1/8 of the cell, BST on the batch's
+# first 4,096 examples (the whole tables)
+MGN_SLICE_SEEDS, BST_SLICE = 128, 4_096
+SERVE_REPEATS = 10
+TRACED_STEPS = 2  # steps of a case traced by torch.profiler
+KERNEL_CATEGORIES = [  # (category, kernel-name pattern): first match wins
+    ("products", r"gemm|sm90_xmma|sm80_xmma|cutlass|cublas|splitK"),
+    ("gathers/scatters", r"index|scatter|gather|embedding|take"),
+    ("norms", r"norm"),
+    ("reductions", r"reduce|softmax"),
+    ("elementwise", r"elementwise|vectorized|unrolled|copy|fill|where|cat"),
+]
+
+
+def to_dev(torch, np, batch, dev):
+    return {k: torch.from_numpy(np.asarray(v)).to(dev)
+            for k, v in batch.items()}
+
+
+def on_cpu(torch, tree):
+    from repro_torch.models.common import tree_map
+
+    return tree_map(lambda t: t.detach().cpu(), tree)
+
+
+def timed_steps(torch, step, state, batches):
+    """``state = step(*state, batch)[:-1]`` for each batch (made before its
+    timing starts): (final state, metrics per step, CUDA-event ms per
+    step)."""
+    metrics, ms = [], []
+    for batch in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(*state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        state, m = out[:-1], out[-1]
+        check(all(bool(torch.isfinite(v)) for v in m.values()),
+              ("a non-finite metric", {k: float(v) for k, v in m.items()}))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return state, metrics, ms
+
+
+def cpu_opinion(torch, np, step, state, batch, card, what):
+    """The same step on the CPU, on the CPU copies of ``state`` and the
+    numpy ``batch``: its loss and gradient norm against the card's
+    (``card``, that step's metrics).  Returns (CPU seconds, relative
+    errors)."""
+    state = on_cpu(torch, state)
+    t0 = time.perf_counter()
+    cpu = step(*state, to_dev(torch, np, batch, "cpu"))[-1]
+    secs = time.perf_counter() - t0
+    errs = {}
+    for k in ("loss", "grad_norm"):
+        want = float(cpu[k])
+        errs[k] = abs(card[k] - want) / max(abs(want), 1e-30)
+        check(errs[k] <= TRAIN_RTOL,
+              (what, f"card vs CPU {k}", card[k], want, errs[k]))
+    return secs, errs
+
+
+def train_line(what, ms, metrics, peak, secs, errs, opinion, extra=""):
+    times = ", ".join(f"{t:.2f}" for t in ms)
+    losses = ", ".join(f"{m['loss']:.4f}" for m in metrics)
+    log(f"[training] {what}: {len(ms)} steps, step "
+        f"{statistics.median(ms):.3f} ms median (CUDA events; {times}), "
+        f"losses {losses}{extra}, "
+        f"gnorm {metrics[0]['grad_norm']:.4f}; peak "
+        f"{peak / 1e9:.3f} GB; CPU opinion on {opinion} ({secs:.1f} s): "
+        f"loss rel {errs['loss']:.2e}, gnorm rel {errs['grad_norm']:.2e}")
+
+
+def cora_like(np, dp):
+    """full_graph_sm: the first number of random edges that gives Cora's
+    2,708 nodes and 10,556 directed edges at the seed (1,433 features, 7
+    classes)."""
+    for m in range(CORA_EDGES // 2 - CORA_NODES, CORA_EDGES):
+        g = dp.random_gnn_graph(CORA_NODES, m, 1_433, 7, seed=SEED)
+        if g["edge_src"].shape[0] == CORA_EDGES:
+            return g
+    raise RuntimeError("no Cora-sized graph at this seed")
+
+
+def reddit_host(torch, np, dp):
+    """The minibatch_lg host graph as CSR: ``random_gnn_graph`` with enough
+    random edges, its last undirected pairs dropped to leave exactly
+    REDDIT_EDGES directed edges; 602 features, 41 classes."""
+    n, half = REDDIT_NODES, REDDIT_EDGES // 2
+    t0 = time.perf_counter()
+    g = dp.random_gnn_graph(n, half - (n - 1) + 2_000, 602, 41, seed=SEED)
+    u = g["edge_src"].shape[0] // 2  # undirected pairs: k and k + u
+    check(u >= half, ("too few host edges", u, half))
+    keep = np.r_[0:half, u:u + half]
+    src, dst = g["edge_src"][keep], g["edge_dst"][keep]
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    order = torch.sort(torch.from_numpy(src), stable=True)[1].numpy()
+    nbr = dst[order]
+    indptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(src, minlength=n), out=indptr[1:])
+    t_csr = time.perf_counter() - t0
+    check(indptr[-1] == REDDIT_EDGES, ("host edges", indptr[-1]))
+    log(f"[training] graphsage-reddit host graph: {n:,} nodes, "
+        f"{REDDIT_EDGES:,} directed edges (Reddit's; no cut), mean degree "
+        f"{REDDIT_EDGES / n:.1f}, min {int(np.diff(indptr).min())}; made in "
+        f"{t_gen:.1f} s, CSR in {t_csr:.1f} s (host)")
+    return indptr, nbr, g["node_feat"], g["labels"]
+
+
+def padded_block(np, block, feat, n_pad, e_pad):
+    """A sampled block padded to ``n_pad`` nodes and ``e_pad`` edges (the
+    cell's shape): padding nodes have zero features, padding edges join
+    the last padding node to itself."""
+    k, e = block["nodes"].shape[0], block["edge_src"].shape[0]
+    check(k < n_pad and e <= e_pad, ("block over the cell", k, e))
+    node_feat = np.zeros((n_pad, feat.shape[1]), np.float32)
+    node_feat[:k] = feat[block["nodes"]]
+    src = np.full(e_pad, n_pad - 1, np.int32)
+    dst = np.full(e_pad, n_pad - 1, np.int32)
+    src[:e], dst[:e] = block["edge_src"], block["edge_dst"]
+    return {"node_feat": node_feat, "edge_src": src, "edge_dst": dst}, k, e
+
+
+def busy_share(spans, wall_us):
+    """The union of the [start, end) ``spans`` over ``wall_us``."""
+    covered, end = 0.0, None
+    for s, e in sorted(spans):
+        if end is None or s > end:
+            covered, end = covered + e - s, e
+        elif e > end:
+            covered, end = covered + e - end, e
+    return covered / wall_us
+
+
+def trace_steps(torch, what, step, state, batch):
+    """TRACED_STEPS more steps on ``state`` under ``torch.profiler``:
+    kernels per step, kernel ms per step, the device's busy share of the
+    traced window (kernel intervals over its wall time), kernel time by
+    category and the three longest kernels."""
+    import collections
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(TRACED_STEPS):
+            step(*state, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        log(f"[training] {what} trace: no device events (not measured)")
+        return
+    by_cat, by_name = collections.Counter(), collections.Counter()
+    for e in kernels:
+        us = e.time_range.elapsed_us()
+        cat = next((c for c, pat in KERNEL_CATEGORIES
+                    if re.search(pat, e.name, re.IGNORECASE)), "other")
+        by_cat[cat] += us
+        by_name[e.name] += us
+    total = sum(by_cat.values())
+    cats = "; ".join(f"{c} {us / TRACED_STEPS / 1e3:.2f} ms "
+                     f"({us / total:.0%})" for c, us in by_cat.most_common())
+    top = "; ".join(f"{us / TRACED_STEPS / 1e3:.2f} ms {name[:60]}"
+                    for name, us in by_name.most_common(3))
+    share = busy_share([(e.time_range.start, e.time_range.end)
+                        for e in kernels], wall_us)
+    log(f"[training] {what} trace ({TRACED_STEPS} steps, torch.profiler): "
+        f"{len(kernels) / TRACED_STEPS:.0f} kernels and "
+        f"{total / TRACED_STEPS / 1e3:.2f} ms of kernel time per step, "
+        f"{wall_us / TRACED_STEPS / 1e3:.2f} ms wall; device busy share "
+        f"{share:.3f}; {cats}; longest: {top}")
+
+
+def gnn_case(torch, np, dev, name, shape, batches, opinion=None,
+             repeated=True, trace=False):
+    """Train the published config of ``name`` at ``shape`` on the card,
+    one step per batch (numpy batches; the first is the CPU opinion's
+    unless ``opinion`` gives a slice).  A case that repeats one batch must
+    end below its first loss; with ``trace``, its step is also traced."""
+    import functools
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.configs.gnn_family import shape_cfg
+    from repro_torch.models import gnn as G
+    from repro_torch.train.optim import OptConfig, init_opt
+    from repro_torch.train.steps import make_train_step
+
+    base = get_arch(name).smoke_fn.args[0]  # the published config
+    cfg = shape_cfg(base, shape)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = G.init_gnn(gen, cfg, device=dev)
+    opt_cfg = OptConfig(peak_lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP)
+    opt = init_opt(params, opt_cfg)
+    step = make_train_step(functools.partial(G.gnn_loss, cfg=cfg), opt_cfg)
+    dev_batches = (to_dev(torch, np, b, dev) for b in batches())
+    (p1, _), metrics, ms = timed_steps(torch, step, (params, opt),
+                                       dev_batches)
+    peak = torch.cuda.max_memory_allocated()
+    extra = ""
+    if repeated:
+        last = to_dev(torch, np, next(iter(batches())), dev)
+        with torch.no_grad():
+            after = float(G.gnn_loss(p1, last, cfg)[0])
+        check(np.isfinite(after) and after < metrics[0]["loss"],
+              (name, "the loss did not fall", metrics[0]["loss"], after))
+        extra = f" (after the last step {after:.4f})"
+    if opinion is None:
+        label, batch0 = "the whole first batch", next(iter(batches()))
+        card = metrics[0]
+    else:
+        label, batch0 = opinion
+        card = step(params, opt, to_dev(torch, np, batch0, dev))[-1]
+        card = {k: float(v) for k, v in card.items()}
+    secs, errs = cpu_opinion(torch, np, step, (params, opt), batch0, card,
+                             name)
+    dims = ("" if cfg.kind == "dimenet"
+            else f", in {cfg.in_dim}, out {cfg.out_dim}")
+    what = f"{name} {shape} ({cfg.n_layers} layers, d={cfg.d_hidden}{dims})"
+    train_line(what, ms, metrics, peak, secs, errs, label, extra)
+    if trace:
+        trace_steps(torch, name, step, (params, opt),
+                    to_dev(torch, np, next(iter(batches())), dev))
+    del params, opt, p1
+    torch.cuda.empty_cache()
+
+
+def phase_gnn_training(torch, np, dev):
+    from repro_torch.configs.gnn_family import GNN_SHAPES
+    from repro_torch.data import pipeline as dp
+
+    cora = cora_like(np, dp)
+    gnn_case(torch, np, dev, "gin-tu", "full_graph_sm",
+                             lambda: [cora] * GNN_STEPS)
+
+    mol = dp.molecule_batch(MOLECULES, ATOMS, MOLECULE_EDGES, seed=SEED)
+    log(f"[training] dimenet molecule batch: {MOLECULES} graphs x {ATOMS} "
+        f"atoms, {mol['edge_src'].shape[0]:,} directed edges, "
+        f"{mol['t_kj'].shape[0]:,} triplets (build_triplets)")
+    gnn_case(torch, np, dev, "dimenet", "molecule",
+             lambda: [mol] * GNN_STEPS)
+
+    meta = GNN_SHAPES["minibatch_lg"]
+    indptr, nbr, feat, labels = reddit_host(torch, np, dp)
+    sampler = dp.NeighborSampler(indptr, nbr, fanouts=(15, 10), seed=SEED)
+    rng = np.random.default_rng(SEED)
+    sizes = []
+
+    def sage_block():
+        seeds = rng.choice(REDDIT_NODES, meta["seeds"], replace=False)
+        t0 = time.perf_counter()
+        block = sampler.sample(seeds)
+        b, k, e = padded_block(np, block, feat, meta["n"], meta["e"])
+        sizes.append((k, e, time.perf_counter() - t0))
+        lab = np.zeros(meta["n"], np.int32)
+        lab[:k] = labels[block["nodes"]]
+        b["labels"] = lab
+        b["train_mask"] = (np.arange(meta["n"]) < block["n_seeds"]).astype(
+            np.float32)
+        return b
+
+    blocks = [sage_block() for _ in range(GNN_STEPS)]
+    log(f"[training] graphsage-reddit blocks ({meta['seeds']:,} seeds, "
+        f"fanouts 15-10, padded to {meta['n']:,} nodes / {meta['e']:,} "
+        "edges): "
+        + "; ".join(f"{k:,} nodes {e:,} edges {t:.2f} s" for k, e, t in sizes))
+    gnn_case(
+        torch, np, dev, "graphsage-reddit", "minibatch_lg", lambda: blocks,
+        repeated=False)
+    del blocks
+
+    def mgn_batch(n_seeds, n_pad, e_pad):
+        seeds = rng.choice(REDDIT_NODES, n_seeds, replace=False)
+        block = sampler.sample(seeds)
+        b, k, e = padded_block(np, block, feat, n_pad, e_pad)
+        b["edge_feat"] = np.zeros((e_pad, 4), np.float32)
+        b["edge_feat"][:e] = rng.normal(size=(e, 4))
+        b["labels"] = rng.normal(size=(n_pad, 3)).astype(np.float32)
+        b["train_mask"] = (np.arange(n_pad) < k).astype(np.float32)
+        return b, k, e
+
+    mgn, k, e = mgn_batch(meta["seeds"], meta["n"], meta["e"])
+    part = meta["seeds"] // MGN_SLICE_SEEDS
+    mslice, ks, es = mgn_batch(MGN_SLICE_SEEDS, meta["n"] // part,
+                               meta["e"] // part)
+    log(f"[training] meshgraphnet batch: a sampled block of {k:,} nodes and "
+        f"{e:,} edges padded to {meta['n']:,} / {meta['e']:,} (the "
+        f"minibatch_lg cell); its CPU slice {ks:,} / {es:,} padded to "
+        f"{meta['n'] // part:,} / {meta['e'] // part:,}")
+    del feat, nbr
+    gnn_case(
+        torch, np, dev, "meshgraphnet", "minibatch_lg",
+        lambda: [mgn] * GNN_STEPS, trace=True,
+        opinion=(f"a block of {MGN_SLICE_SEEDS} seeds (1/{part} of the "
+                 "cell)", mslice))
+
+
+def bst_slice(np, batch, n, nnz):
+    """The first ``n`` examples of a ``ClickStream`` batch."""
+    out = {k: v[:n] for k, v in batch.items() if k not in ("bag_ids",
+                                                           "bag_seg")}
+    out["bag_ids"] = batch["bag_ids"][:n * nnz]
+    out["bag_seg"] = batch["bag_seg"][:n * nnz]
+    return out
+
+
+def check_sparse_rows(torch, np, old, new, ids, dev, key):
+    """After the sparse steps: every row that no batch touched is
+    bit-identical, and every row that the first batch touched moved (the
+    first step moves each touched row by about 500x its gradient).  A row
+    first touched by a later batch may keep its bytes: where every example
+    that reads it has a saturated logit, its gradient rounds away."""
+    def mask(arrays):
+        m = torch.zeros(old.shape[0], dtype=torch.bool, device=dev)
+        m[torch.from_numpy(np.concatenate(arrays)).to(dev).long()] = True
+        return m
+
+    touched, first = mask(ids), mask(ids[:1])
+    check(torch.equal(old[~touched], new[~touched]),
+          (key, "an untouched row changed"))
+    moved = (old != new).any(dim=1)
+    check(bool(moved[first].all()), (key, "rows of the first batch that "
+                                     "did not move",
+                                     int((first & ~moved).sum())))
+    later = touched & ~first
+    log(f"[training] bst sparse {key}: {int((~touched).sum()):,} rows "
+        f"untouched and bit-identical; {int(first.sum()):,} touched by the "
+        f"first batch, all moved; {int(later.sum()):,} first touched later, "
+        f"{int((later & moved).sum()):,} of them moved")
+
+
+def phase_bst_training(torch, np, dev):
+    """BST at ``bst_arch.CFG`` (10M x 32 item table, 1M x 32 profile
+    table): dense AdamW steps over every parameter and sparse steps at
+    train_batch (65,536 examples), then serve_p99 and retrieval_cand."""
+    import functools
+
+    from repro_torch.configs.bst_arch import (BST_SHAPES, CFG,
+                                              retrieval_batch)
+    from repro_torch.data.pipeline import ClickStream
+    from repro_torch.models import bst as B
+    from repro_torch.models.common import count_params, tree_bytes
+    from repro_torch.train.optim import OptConfig, init_opt
+    from repro_torch.train.steps import make_train_step
+
+    def stream(batch):
+        return ClickStream(n_items=CFG.n_items, n_profile=CFG.n_profile,
+                           seq_len=CFG.seq_len, batch=batch,
+                           bag_nnz=CFG.bag_nnz_per_row, n_dense=CFG.n_dense,
+                           seed=SEED)
+
+    nnz = CFG.bag_nnz_per_row
+    train = stream(BST_SHAPES["train_batch"]["batch"])
+    batches = [train.batch_at(i) for i in range(BST_STEPS)]
+    sl = bst_slice(np, batches[0], BST_SLICE, nnz)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = B.init_bst(gen, CFG, device=dev)
+    torch.cuda.synchronize()
+    check(count_params(params) == CFG.param_count(), "bst params")
+    log(f"[training] bst: {CFG.param_count():,} params ("
+        f"{tree_bytes(params) / 1e9:.2f} GB float32) made from seed {SEED} "
+        f"in {time.perf_counter() - t0:.2f} s; train_batch "
+        f"{BST_SHAPES['train_batch']['batch']:,} examples from ClickStream")
+
+    opt_cfg = OptConfig(peak_lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP)
+    dense = make_train_step(functools.partial(B.bst_loss, cfg=CFG), opt_cfg)
+    opt = init_opt(params, opt_cfg)
+    (p1, o1), metrics, ms = timed_steps(
+        torch, dense, (params, opt),
+        (to_dev(torch, np, b, dev) for b in batches))
+    del p1, o1
+    peak = torch.cuda.max_memory_allocated()
+    card = {k: float(v) for k, v in
+            dense(params, opt, to_dev(torch, np, sl, dev))[-1].items()}
+    secs, errs = cpu_opinion(torch, np, dense, (params, opt), sl, card,
+                             "bst dense")
+    train_line("bst dense (AdamW over every parameter) train_batch", ms,
+               metrics, peak, secs, errs,
+               f"the batch's first {BST_SLICE:,} examples")
+    trace_steps(torch, "bst dense", dense, (params, opt),
+                to_dev(torch, np, batches[0], dev))
+    del opt
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    net = B.dense_params(params)
+    state = (params, B.init_bst_sparse_opt(params), init_opt(net, opt_cfg))
+    sparse = functools.partial(B.bst_sparse_train_step, cfg=CFG,
+                               opt_cfg=opt_cfg)
+    (p1, _, _), metrics, ms = timed_steps(
+        torch, sparse, state, (to_dev(torch, np, b, dev) for b in batches))
+    peak = torch.cuda.max_memory_allocated()
+    for key, ids in (("item_table", [np.concatenate(
+            [b["hist"].ravel(), b["target"]]) for b in batches]),
+            ("profile_table", [b["bag_ids"] for b in batches])):
+        check_sparse_rows(torch, np, params[key], p1[key], ids, dev, key)
+    del p1
+    card = {k: float(v) for k, v in
+            sparse(*state, to_dev(torch, np, sl, dev))[-1].items()}
+    secs, errs = cpu_opinion(torch, np, sparse, state, sl, card,
+                             "bst sparse")
+    train_line("bst sparse (rowwise Adagrad on touched rows) train_batch",
+               ms, metrics, peak, secs, errs,
+               f"the batch's first {BST_SLICE:,} examples")
+    trace_steps(torch, "bst sparse", sparse, state,
+                to_dev(torch, np, batches[0], dev))
+    del state
+    torch.cuda.empty_cache()
+
+    serve_np = stream(BST_SHAPES["serve_p99"]["batch"]).batch_at(100)
+    serve_np.pop("labels")
+    ret_np = retrieval_batch(train.batch_at(101), nnz,
+                             BST_SHAPES["retrieval_cand"]["candidates"])
+    ret_np.pop("labels")
+    cpu_params = on_cpu(torch, params)
+    with torch.no_grad():
+        for name, fn, b in (("serve_p99", B.bst_serve, serve_np),
+                            ("retrieval_cand", B.bst_retrieval, ret_np)):
+            bd = to_dev(torch, np, b, dev)
+            got = fn(params, bd, CFG)
+            ms = cuda_ms(torch, lambda: fn(params, bd, CFG), SERVE_REPEATS)
+            want = fn(cpu_params, to_dev(torch, np, b, "cpu"), CFG)
+            err = max_abs_err(torch, got.cpu(), want)
+            bound = (SERVE_ATOL if name == "serve_p99" else
+                     RETRIEVAL_RTOL * float(want.abs().max()))
+            check(bool(torch.isfinite(got).all()) and err <= bound,
+                  (name, "card vs CPU", err, bound))
+            log(f"[training] bst {name}: {tuple(got.shape)} "
+                f"{ms:.3f} ms median (CUDA events); max |card - CPU| "
+                f"{err:.2e} (bound {bound:.2e})")
+    del params, cpu_params
+    torch.cuda.empty_cache()
+
+
+def phase_train_driver(tmp):
+    """``python -m repro_torch.launch.train --arch gin-tu`` as a user runs
+    it: 10 steps checkpointed every 5, then ``--resume`` to 15; and the
+    fault-tolerant LM example on the card."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            "gin-tu", "--ckpt-every", "5", "--ckpt-dir", str(tmp)]
+    runs = []
+    for extra in (["--steps", "10"], ["--steps", "15", "--resume"]):
+        t0 = time.perf_counter()
+        run = subprocess.run(base + extra, cwd=ROOT, capture_output=True,
+                             text=True, timeout=600, env=env)
+        check(run.returncode == 0, ("the train driver failed", extra,
+                                    run.stderr[-2000:]))
+        runs.append((run.stdout.strip().splitlines(),
+                     time.perf_counter() - t0))
+    (first, t1), (second, t2) = runs
+    check(first[-1].startswith("done: 10 steps"), ("train driver", first))
+    check(second[0] == "resumed from step 10"
+          and second[-1].startswith("done: 15 steps"),
+          ("train driver resume", second))
+    log(f"[training] train driver gin-tu: 10 steps ({t1:.1f} s), then "
+        f"'{second[0]}' and '{second[-1].split(',')[0]}' ({t2:.1f} s); "
+        f"last: {second[-2]}")
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / "torch_train_lm_resume.py")],
+        cwd=ROOT, capture_output=True, text=True, timeout=600, env=env)
+    lines = run.stdout.strip().splitlines()
+    check(run.returncode == 0 and lines
+          and lines[-1] == "fault-tolerant training example on cuda OK",
+          ("the resume example failed", lines[-4:], run.stderr[-2000:]))
+    log(f"[training] examples/torch_train_lm_resume.py on the card: "
+        f"{lines[0]}; {lines[3]} (rtol 1e-5; "
+        f"{time.perf_counter() - t0:.1f} s)")
+
+
+def phase_training(torch, np, dev, smi):
+    """Phase 10: the training path of every family on the card."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    phase_gnn_training(torch, np, dev)
+    phase_bst_training(torch, np, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_train_driver(Path(tmp))
+    log(f"[training] {smi}; phase passed in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -1877,6 +2421,8 @@ def main() -> int:
     phase_kspdg_smoke()
     torch.cuda.empty_cache()
     phase_lm_serving(torch, np, dev, smi)
+    torch.cuda.empty_cache()
+    phase_training(torch, np, dev, smi)
 
     sources = {  # kernel -> (CUDA source, the TPU kernel it replaces)
         "bf_relax_step": ("bf_relax.cu", "src/repro/kernels/bf_relax.py:69"),

@@ -32,6 +32,14 @@ class TensorSpec:
         return n * torch.empty((), dtype=self.dtype).element_size()
 
 
+def spec_tree(tree):
+    """The :class:`TensorSpec` of every tensor of a tree (a meta init's,
+    say): the tree's structure with specs for leaves."""
+    from repro_torch.models.common import tree_map
+
+    return tree_map(lambda t: TensorSpec(tuple(t.shape), t.dtype), tree)
+
+
 @dataclasses.dataclass
 class Cell:
     arch: str

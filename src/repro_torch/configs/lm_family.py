@@ -9,11 +9,11 @@ import torch
 
 from repro_torch.dist.cluster import resolve_device
 from repro_torch.models import transformer as T
-from repro_torch.models.common import DTypePolicy, tree_map
+from repro_torch.models.common import DTypePolicy
 from repro_torch.train.optim import OptConfig, init_opt
 from repro_torch.train.steps import make_train_step
 
-from .base import Arch, Cell, TensorSpec, register
+from .base import Arch, Cell, TensorSpec, register, spec_tree
 
 # assigned LM shapes (identical across the five archs)
 LM_SHAPES = {
@@ -28,18 +28,14 @@ def _opt_cfg(policy: DTypePolicy) -> OptConfig:
     return OptConfig(moment_dtype=policy.opt_state)
 
 
-def _specs(tree):
-    return tree_map(lambda t: TensorSpec(tuple(t.shape), t.dtype), tree)
-
-
 def lm_param_state(cfg: T.LMConfig, policy: DTypePolicy):
     """(param_specs, param_axes, opt_specs, opt_axes) from an init on the
     meta device (shapes and dtypes only; nothing is allocated)."""
     params = T.init_lm(0, cfg, policy, device="meta")
     p_axes = T.lm_axes(cfg)
-    o_specs = _specs(init_opt(params, _opt_cfg(policy)))
+    o_specs = spec_tree(init_opt(params, _opt_cfg(policy)))
     o_axes = {"m": p_axes, "v": p_axes, "step": ()}
-    return _specs(params), p_axes, o_specs, o_axes
+    return spec_tree(params), p_axes, o_specs, o_axes
 
 
 def _batch_specs(batch: int, seq: int):

@@ -2,8 +2,9 @@
 
 Everything crosses as plain numpy arrays, so this module needs nothing
 of ``repro`` itself: the road graph and the packed subgraph slabs of the
-KSP system, and the LM parameter and optimizer trees (nested dicts with
-the reference's keys, dtypes kept).  numpy has no bfloat16: a bf16 leaf
+KSP system, and the parameter and optimizer trees of the LM, GNN and BST
+families (nested dicts and lists with the reference's keys, dtypes
+kept).  numpy has no bfloat16: a bf16 leaf
 arrives as an ``ml_dtypes`` array (the reference's own) or as raw 2-byte
 void data, and leaves as its uint16 bit patterns unless the caller names
 a numpy bfloat16 dtype to view them as.
@@ -15,6 +16,8 @@ a numpy bfloat16 dtype to view them as.
                            ref_slab.z, ref_slab.epoch, device="cuda")
     params = lm_params_from_numpy(jax.tree.map(np.asarray, ref_params),
                                   cfg, device="cuda")
+    params = gnn_params_from_numpy(jax.tree.map(np.asarray, ref_gnn),
+                                   gnn_cfg, device="cuda")
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ import torch
 
 from .core.graph import Graph
 from .engine.dense import SubgraphSlab, place_slab
+from .models import bst as B
+from .models import gnn as G
 from .models import transformer as T
 from .models.common import DEFAULT_POLICY, tree_map
 
@@ -88,17 +93,34 @@ def tree_to_numpy(tree, bf16=None):
     return tree_map(one, tree)
 
 
-def _check_like(tree, like, where="params"):
-    """``tree`` has the keys and shapes of ``like`` (a meta init)."""
+def _torch_dtype(a) -> torch.dtype:
+    a = np.asarray(a)
+    if _is_bf16(a):
+        return torch.bfloat16
+    return torch.from_numpy(np.zeros(0, dtype=a.dtype)).dtype
+
+
+def _check_like(tree, like, where="params", dtypes=False):
+    """``tree`` has the keys, list lengths and shapes of ``like`` (a meta
+    init), and with ``dtypes`` its dtypes too."""
     if isinstance(like, dict):
         if not isinstance(tree, dict) or set(tree) != set(like):
             got = sorted(tree) if isinstance(tree, dict) else type(tree)
             raise ValueError(f"{where}: keys {got}, expected {sorted(like)}")
         for k in like:
-            _check_like(tree[k], like[k], f"{where}/{k}")
+            _check_like(tree[k], like[k], f"{where}/{k}", dtypes)
+    elif isinstance(like, (list, tuple)):
+        if not isinstance(tree, (list, tuple)) or len(tree) != len(like):
+            got = len(tree) if isinstance(tree, (list, tuple)) else type(tree)
+            raise ValueError(f"{where}: {got} entries, expected {len(like)}")
+        for i, (t, lk) in enumerate(zip(tree, like)):
+            _check_like(t, lk, f"{where}/{i}", dtypes)
     elif tuple(np.shape(tree)) != tuple(like.shape):
         raise ValueError(f"{where}: shape {tuple(np.shape(tree))}, expected "
                          f"{tuple(like.shape)}")
+    elif dtypes and _torch_dtype(tree) != like.dtype:
+        raise ValueError(f"{where}: dtype {np.asarray(tree).dtype}, expected "
+                         f"{like.dtype}")
 
 
 def lm_params_from_numpy(tree, cfg: T.LMConfig, device="cuda"):
@@ -115,4 +137,32 @@ def opt_state_from_numpy(tree, cfg: T.LMConfig, device="cuda"):
     like = T.init_lm(0, cfg, DEFAULT_POLICY, device="meta")
     _check_like(tree["m"], like, "m")
     _check_like(tree["v"], like, "v")
+    return tree_from_numpy(tree, device)
+
+
+def gnn_params_from_numpy(tree, cfg: G.GNNConfig, device="cuda"):
+    """The reference's ``init_gnn`` tree (numpy leaves) as the port's
+    parameters for ``cfg``: the same keys, shapes and dtypes."""
+    _check_like(tree, G.init_gnn(0, cfg, device="meta"), dtypes=True)
+    return tree_from_numpy(tree, device)
+
+
+def bst_params_from_numpy(tree, cfg: B.BSTConfig, device="cuda"):
+    """The reference's ``init_bst`` tree (numpy leaves) as the port's
+    parameters for ``cfg``: the same keys, shapes and dtypes."""
+    _check_like(tree, B.init_bst(0, cfg, device="meta"), dtypes=True)
+    return tree_from_numpy(tree, device)
+
+
+def bst_sparse_opt_from_numpy(tree, device="cuda"):
+    """The reference's ``init_bst_sparse_opt`` state (``{"item_acc",
+    "profile_acc"}``, float32 [rows] each) as the port's, checked against
+    the meta init for tables of as many rows as its accumulators."""
+    def table(key):
+        rows = tuple(np.shape(tree.get(key, ())))[:1] or (0,)
+        return torch.empty(rows + (1,), device="meta")
+
+    like = B.init_bst_sparse_opt({"item_table": table("item_acc"),
+                                  "profile_table": table("profile_acc")})
+    _check_like(tree, like, "sparse opt", dtypes=True)
     return tree_from_numpy(tree, device)

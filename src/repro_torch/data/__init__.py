@@ -1,2 +1,3 @@
-"""repro_torch.data — synthetic road networks, weight-update streams and
-the DIMACS .gr loader."""
+"""repro_torch.data — synthetic road networks, weight-update streams, the
+DIMACS .gr loader, and the training pipelines of every family
+(``pipeline``)."""

@@ -1,2 +1,3 @@
-"""repro_torch.launch — drivers: ``serve`` (cluster serving) and ``mesh``
-(device meshes and the ``torch.distributed`` init hook)."""
+"""repro_torch.launch — drivers: ``serve`` (cluster serving), ``train``
+(any registered arch, checkpointed and resumable) and ``mesh`` (device
+meshes and the ``torch.distributed`` init hook)."""

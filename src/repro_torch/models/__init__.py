@@ -1,2 +1,2 @@
-"""Models of the port: the LM family (``transformer``) on the shared
-substrate (``common``).  The GNN and BST models are not ported yet."""
+"""Models of the port: the LM family (``transformer``), the GNN family
+(``gnn``) and BST (``bst``), on the shared substrate (``common``)."""

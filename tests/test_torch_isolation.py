@@ -51,7 +51,9 @@ def test_import_leaves_jax_and_reference_unloaded():
         "repro_torch.launch.serve, repro_torch.launch.mesh, "
         "repro_torch.data.dimacs, repro_torch.dist.shard_refine, "
         "repro_torch.models.transformer, repro_torch.serve.engine, "
-        "repro_torch.train.steps, repro_torch.ckpt.checkpoint\n"
+        "repro_torch.train.steps, repro_torch.ckpt.checkpoint, "
+        "repro_torch.launch.train, repro_torch.models.gnn, "
+        "repro_torch.models.bst, repro_torch.data.pipeline\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') or "
         "m.startswith(('jax.', 'repro.')))\n"
         "print(bad)\n"

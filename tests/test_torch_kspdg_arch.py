@@ -135,11 +135,12 @@ class TestRefineStep:
 
 class TestArch:
     def test_registry_holds_kspdg(self):
-        """kspdg beside the five LM architectures (tests/test_torch_archs.py
-        covers those)."""
+        """kspdg beside the ten assigned architectures: five LM, four
+        GNN and BST (tests/test_torch_archs.py covers those)."""
         assert set(all_archs()) == {
             "kspdg", "starcoder2-3b", "deepseek-coder-33b", "gemma3-27b",
-            "deepseek-v3-671b", "moonshot-v1-16b-a3b"}
+            "deepseek-v3-671b", "moonshot-v1-16b-a3b", "dimenet",
+            "meshgraphnet", "graphsage-reddit", "gin-tu", "bst"}
         arch = get_arch("kspdg")
         assert arch.family == "ksp" and arch.smoke_fn is kspdg_arch.kspdg_smoke
 
