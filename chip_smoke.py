@@ -121,7 +121,24 @@ phase that does not hold:
    ``--resume --steps 15`` (which must print "resumed from step 10" and
    "done: 15 steps"), and ``examples/torch_train_lm_resume.py`` on the
    card (the resumed run equal to the uninterrupted one within rtol
-   1e-5).
+   1e-5);
+11. dry-run: ``python -m repro_torch.launch.dryrun --all --mesh all``
+   (every registered cell's own step traced on the meta device and
+   costed in H100 terms, the TPU meshes' per-device argument bytes) runs
+   in the background and must end in "done: 123 ok, 9 skipped
+   (documented), 0 errors", with the card's name and power limit in
+   every traced record; meanwhile 11 cells run at full shape through
+   their own ``step_fn`` (refine_dense, levels, maintain, gin-tu
+   full_graph_sm, dimenet molecule, graphsage-reddit and meshgraphnet
+   minibatch_lg, BST train_batch, serve_p99 and retrieval_cand,
+   starcoder2-3b decode_32k at B=128 on its 4,096-slot ring): each
+   traced argument + temporary peak within 15% of the measured peak,
+   each median step not under the traced memory time of its ops that
+   overflow the L2 nor, outside kspdg, under the traced compute time;
+   then both hill-climbs (``launch.hillclimb_gemma``,
+   ``launch.hillclimb_bst``) measure their variants beside the traced
+   ratios.  The kernels' bounds charge min-plus operations at the H100's
+   FADD/FMNMX issue rate (``repro_torch.launch.roofline``).
 
 It imports nothing of JAX or of the reference package.  Without a card
 it exits non-zero and prints no result.  The last three lines are the
@@ -142,11 +159,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
-
-# NVIDIA H100 SXM data-sheet peaks (dense, no sparsity, at 700 W): HBM3
-# bandwidth and float32 rate outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
 
 SEED = 0
 DENSE_S, DENSE_Z, DENSE_J = 8192, 256, 32  # refine_dense shape inventory
@@ -176,8 +188,14 @@ def log(*parts):
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = n_ops / FP32_OPS_PER_S
+    """The least time of a kernel that moves ``n_bytes`` and issues
+    ``n_ops`` min-plus operations (float32 adds and min/max, one issue
+    slot each), at the H100 data sheet's HBM rate and FADD/FMNMX issue
+    rate (``repro_torch.launch.roofline``)."""
+    from repro_torch.launch.roofline import HBM_BW, MINPLUS_OPS
+
+    t_bytes = n_bytes / HBM_BW
+    t_ops = n_ops / MINPLUS_OPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -341,6 +359,20 @@ def offset_copy(torch, t, floats):
     view = big[floats:].view(t.shape)
     view.copy_(t)
     return view
+
+
+def bf_step_ops(torch, adj, path, J, jt):
+    """Operations one ``bf_relax_step`` needs on this data: per block of
+    jn problems, 2·jn·nnz(adj[s]) add+min where it relaxes its in-edge
+    list (``path`` 1), 2·jn·z² where it scans every entry (0)."""
+    from repro_torch.kernels.ref import INF
+
+    z = adj.shape[-1]
+    nnz = (adj < INF).sum(dim=(1, 2)).double()
+    jn = torch.tensor([min(jt, J - t) for t in range(0, J, jt)],
+                      dtype=torch.float64, device=adj.device)
+    per_row = torch.where(path.bool(), nnz[:, None], float(z * z))
+    return float((2.0 * per_row * jn[None, :]).sum())
 
 
 def bf_solve_ops(torch, adj, iters, J, jt):
@@ -616,7 +648,8 @@ def phase_refine_dense(torch, dev, cell):
     step_err = max_abs_err(torch, got, want)
     n = S * J * z
     step_bytes = adj_bytes + n * 4 * 2 + n * 2 + S * J * 4
-    step_bound, step_by = bound_ms(step_bytes, 2.0 * S * J * z * z)
+    step_bound, step_by = bound_ms(
+        step_bytes, bf_step_ops(torch, adj, step_path, J, step_jt))
     log(f"[refine_dense] bf_relax_step: {step_ms:.3f} ms (median of 7), "
         f"{step_bytes / step_ms / 1e6:.0f} GB/s of the {step_bytes / 1e9:.3f} "
         f"GB it must move, plain {step_plain_ms:.1f} ms, bound "
@@ -1400,11 +1433,7 @@ def phase_levels(torch, dev, cell):
     finite = (D < ref.INF).double().sum(dim=1)  # levels found per vertex
     adj_bytes = adj.numel() * 4
     n_d = S * k * z
-    # operations this data needs per row and relaxation: a (u, v) pair with
-    # no edge costs one add and one compare (the early exit), an edge at
-    # most k of each
     nnz = (adj < ref.INF).sum(dim=(1, 2)).double()
-    row_ops = 2.0 * (z * z + k * nnz)  # the step's dense scan
     # the solve folds each row's in-edges only: at most k add+compare
     # pairs per finite entry and relaxation
     solve_bound, solve_by = bound_ms(
@@ -1436,6 +1465,12 @@ def phase_levels(torch, dev, cell):
         torch, lambda: chunked(torch, ref.ktrop_relax_ref, S, Dm, adj))
     check(torch.equal(got, want), "ktrop_relax_step differs at levels")
     step_bytes = adj_bytes + 2 * n_d * 4
+    # operations this data needs per row: on its in-edge list at most k
+    # add+compare pairs per finite entry; a row that scans every u also
+    # pays one add and one compare (the early exit) per pair without an
+    # edge
+    row_ops = torch.where(step_path.bool(), 2.0 * k * nnz,
+                          2.0 * (z * z + k * nnz))
     step_bound, step_by = bound_ms(step_bytes, float(row_ops.sum()))
     log(f"[levels] ktrop_relax_step: {step_ms:.3f} ms (median of 7), "
         f"{step_bytes / step_ms / 1e6:.0f} GB/s of the {step_bytes / 1e9:.3f} "
@@ -1819,13 +1854,15 @@ def phase_lm_serving(torch, np, dev, smi):
     step_ms, enqueue_ms = lm_decode_timing(torch, T, srv, cfg, dev)
     cache_bytes = tree_bytes(srv.cache)
     peak = torch.cuda.max_memory_allocated()
-    bound = weight_bytes / HBM_BYTES_PER_S * 1e3
+    from repro_torch.launch.roofline import HBM_BW
+
+    bound = weight_bytes / HBM_BW * 1e3
     log(f"[lm_serving] decode step B={LM_SLOTS}: {step_ms:.3f} ms median "
         f"({LM_SLOTS / step_ms * 1e3:.1f} tokens/s; the host takes "
         f"{enqueue_ms:.3f} ms to enqueue it); weight-read bound "
         f"{bound:.3f} ms ({weight_bytes / 1e9:.2f} GB bf16 at "
-        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; the {cache_bytes / 1e9:.2f} GB "
-        f"ring cache read too: {(weight_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3:.3f} ms);"
+        f"{HBM_BW / 1e12:.2f} TB/s; the {cache_bytes / 1e9:.2f} GB "
+        f"ring cache read too: {(weight_bytes + cache_bytes) / HBM_BW * 1e3:.3f} ms);"
         f" peak {peak / 1e9:.2f} GB; {smi}")
     del srv, params
     torch.cuda.empty_cache()
@@ -2364,6 +2401,283 @@ def phase_training(torch, np, dev, smi):
         f"{time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Dry-run (phase 11): every cell traced on the meta device, the cells that
+# run at full shape here held against what the card measures
+# ---------------------------------------------------------------------------
+# 44 cells on three meshes (one card, 16x16, 2x16x16); refine_cusa and the
+# long_500k cells of deepseek-coder-33b and moonshot carry their skips
+DRYRUN_DONE = "done: 123 ok, 9 skipped (documented), 0 errors"
+# traced argument + temporary bytes against the measured peak; the caching
+# allocator rounds each block to 512 B and kernels take workspaces the
+# trace cannot see (cuBLAS, sort)
+PEAK_RTOL = 0.15
+DRYRUN_REPEATS = 3
+HELD_CELLS = (("kspdg", "refine_dense"), ("kspdg", "levels"),
+              ("kspdg", "maintain"), ("gin-tu", "full_graph_sm"),
+              ("dimenet", "molecule"), ("graphsage-reddit", "minibatch_lg"),
+              ("meshgraphnet", "minibatch_lg"), ("bst", "train_batch"),
+              ("bst", "serve_p99"), ("bst", "retrieval_cand"),
+              ("starcoder2-3b", "decode_32k"))
+DECODE_POS = 4095  # the last slot of starcoder2-3b's 4,096-slot ring
+SPECIES = 8  # dimenet atom types drawn (the model embeds 32)
+
+
+def random_tree(torch, tree, dev, gen):
+    """Normal x 0.02 for every float leaf of a tree of TensorSpecs (the
+    parameters), in its own dtype."""
+    from repro_torch.models.common import tree_map
+
+    return tree_map(lambda s: torch.randn(
+        s.shape, generator=gen, device=dev, dtype=s.dtype).mul_(0.02), tree)
+
+
+def zeros_tree(torch, tree, dev):
+    from repro_torch.models.common import tree_map
+
+    return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
+                                          device=dev), tree)
+
+
+def gnn_cell_batch(torch, cell, dev, gen):
+    """A batch of the cell's exact specs: edges between distinct nodes,
+    triplets over the edges, molecules of consecutive atoms, labels below
+    the shape's class count, every node in the loss."""
+    from repro_torch.configs.gnn_family import GNN_SHAPES
+
+    meta = GNN_SHAPES[cell.shape]
+    n, e = meta["n"], meta["e"]
+    specs = cell.arg_specs[-1]
+
+    def ints(hi, shape):
+        return torch.randint(0, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    src = ints(n, (e,))
+    batch = {"edge_src": src,
+             "edge_dst": (src + 1 + ints(n - 1, (e,))) % n}
+    for key, spec in specs.items():
+        if key in batch:
+            continue
+        if key in ("t_kj", "t_ji"):
+            batch[key] = ints(e, spec.shape)
+        elif key == "species":
+            batch[key] = ints(SPECIES, spec.shape)
+        elif key == "graph_idx":
+            g = specs["labels"].shape[0]
+            batch[key] = (torch.arange(n, device=dev) * g // n).int()
+        elif key == "labels" and not spec.dtype.is_floating_point:
+            batch[key] = ints(meta["classes"], spec.shape)
+        elif key == "train_mask":
+            batch[key] = torch.ones(spec.shape, device=dev)
+        else:
+            batch[key] = torch.randn(spec.shape, generator=gen, device=dev)
+        check(tuple(batch[key].shape) == tuple(spec.shape)
+              and batch[key].dtype == spec.dtype, (cell.name, key))
+    return batch
+
+
+def bst_cell_batch(torch, np, cell, dev):
+    """``ClickStream`` examples (phase 10's generator) at the cell's
+    batch; retrieval: one user and 10^6 candidates."""
+    from repro_torch.configs.bst_arch import BST_SHAPES, CFG, retrieval_batch
+    from repro_torch.data.pipeline import ClickStream
+
+    meta = BST_SHAPES[cell.shape]
+    stream = ClickStream(n_items=CFG.n_items, n_profile=CFG.n_profile,
+                         seq_len=CFG.seq_len, batch=meta["batch"],
+                         bag_nnz=CFG.bag_nnz_per_row, n_dense=CFG.n_dense,
+                         seed=SEED)
+    batch = stream.batch_at(0)
+    if cell.kind == "retrieval":
+        batch = retrieval_batch(batch, CFG.bag_nnz_per_row,
+                                meta["candidates"])
+    want = cell.arg_specs[-1]
+    batch = {k: v for k, v in batch.items() if k in want}
+    check(set(batch) == set(want) and all(
+        tuple(batch[k].shape) == tuple(want[k].shape) for k in want),
+        (cell.name, "batch shapes"))
+    return to_dev(torch, np, batch, dev)
+
+
+def cell_inputs(torch, np, cell, dev):
+    """The arguments of ``cell.step_fn`` at the cell's full shape, made
+    on the card from the seed: the kspdg phases' road-like slabs and
+    profiles, seeded parameters with zero AdamW state, and batches of the
+    cell's specs."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    if cell.shape == "refine_dense":
+        S, _, z = cell.arg_specs[1].shape
+        return road_inputs(torch, S, cell.arg_specs[1].shape[1], z, dev)
+    if cell.shape == "levels":
+        S, z, _ = cell.arg_specs[0].shape
+        adj = road_inputs(torch, S, 1, z, dev)[0]
+        return adj, torch.randint(0, z, (S,), generator=gen, device=dev,
+                                  dtype=torch.int32)
+    if cell.shape == "maintain":
+        (S, E), _, (B,), _ = (spec.shape for spec in cell.arg_specs)
+        return maintain_inputs(torch, S, E, B, dev)
+    params = random_tree(torch, cell.arg_specs[0], dev, gen)
+    if cell.kind == "decode":
+        specs = cell.arg_specs
+        vocab = specs[0]["embed"].shape[0]
+        tokens = torch.randint(0, vocab, specs[2].shape, generator=gen,
+                               device=dev, dtype=torch.int32)
+        return (params, zeros_tree(torch, specs[1], dev), tokens,
+                torch.tensor(DECODE_POS, dtype=torch.int32, device=dev))
+    batch = (bst_cell_batch(torch, np, cell, dev) if cell.arch == "bst"
+             else gnn_cell_batch(torch, cell, dev, gen))
+    if cell.kind == "train":
+        return params, zeros_tree(torch, cell.arg_specs[1], dev), batch
+    return params, batch
+
+
+def measure_cell(torch, np, cell, dev):
+    """The cell's step at its full shape: the peak memory of its first
+    call above what was allocated before its inputs were made, then the
+    median of DRYRUN_REPEATS CUDA-event timings; every float output
+    finite."""
+    from repro_torch.models.common import tree_leaves
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    args = cell_inputs(torch, np, cell, dev)
+    torch.cuda.synchronize()
+    make_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    out = cell.step_fn(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    leaves = out if isinstance(out, (tuple, list)) else (out,)
+    floats = [t for t in tree_leaves(list(leaves))
+              if isinstance(t, torch.Tensor) and t.is_floating_point()]
+    check(all(bool(torch.isfinite(t).all()) for t in floats),
+          (cell.name, "a non-finite output"))
+    del out, leaves, floats
+    ms = cuda_ms(torch, lambda: cell.step_fn(*args), DRYRUN_REPEATS)
+    del args
+    torch.cuda.empty_cache()
+    return {"ms": ms, "peak": peak, "make_s": make_s}
+
+
+def run_module(module, out, timeout):
+    """``python -m repro_torch.launch.<module> --out <out>`` on the card;
+    its stdout lines."""
+    run = subprocess.run(
+        [sys.executable, "-m", f"repro_torch.launch.{module}", "--out",
+         str(out)], cwd=ROOT, capture_output=True, text=True,
+        timeout=timeout, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    check(run.returncode == 0, (module, run.returncode, run.stderr[-2000:]))
+    return run.stdout.strip().splitlines()
+
+
+def phase_dryrun(torch, np, dev, smi, tmp):
+    """``python -m repro_torch.launch.dryrun --all --mesh all`` runs in
+    the background (it traces on the meta device: host work only) while
+    the held cells run at full shape on the card, one after another, and
+    then both hill-climbs; each held cell's traced peak (argument +
+    temporary bytes) must lie within PEAK_RTOL of its measured peak, and
+    its median step must not fall under the traced memory time of its
+    ops that overflow the L2 nor, where no kernel of ours runs, under the
+    traced compute time."""
+    from repro_torch.configs.base import all_archs
+
+    t_phase = time.perf_counter()
+    # the libraries' persistent workspaces (cuBLAS, cuBLASLt) are taken at
+    # their first product, not by any cell's step: take them before the
+    # first baseline
+    before = torch.cuda.memory_allocated()
+    for dtype in (torch.float32, torch.bfloat16):
+        a = torch.ones((64, 64), dtype=dtype, device=dev)
+        torch.matmul(a, a)
+        torch.bmm(a[None], a[None])
+    del a
+    torch.cuda.synchronize()
+    log(f"[dryrun] library workspaces held before the cells: "
+        f"{(torch.cuda.memory_allocated() - before) / 2**20:.1f} MiB taken "
+        "now (earlier phases may have taken them already)")
+    out = tmp / "dryrun.jsonl"
+    log_path = tmp / "dryrun.log"
+    with open(log_path, "w") as sweep_log:
+        sweep = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+             "--mesh", "all", "--out", str(out)], cwd=ROOT,
+            stdout=sweep_log, stderr=subprocess.STDOUT, text=True,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        try:
+            archs = all_archs()
+            measured = {}
+            for arch, shape in HELD_CELLS:
+                cell = next(c for c in archs[arch].cells()
+                            if c.shape == shape)
+                measured[cell.name] = (cell, measure_cell(torch, np, cell,
+                                                          dev))
+            t_held = time.perf_counter() - t_phase
+            hill = {m: run_module(m, tmp / f"{m}.jsonl", 900)
+                    for m in ("hillclimb_gemma", "hillclimb_bst")}
+            rc = sweep.wait(timeout=900)
+        finally:
+            if sweep.poll() is None:
+                sweep.kill()
+                sweep.wait()
+    t_sweep = time.perf_counter() - t_phase
+    lines = log_path.read_text().strip().splitlines()
+    check(rc == 0 and bool(lines) and lines[-1] == DRYRUN_DONE,
+          ("the dry-run sweep", rc, lines[-5:]))
+    recs = {(r["cell"], r["mesh"]): r for r in
+            (json.loads(line) for line in out.read_text().splitlines())}
+    check(len(recs) == 132, ("dry-run records", len(recs)))
+    card = [r for r in recs.values() if r["mesh"] == "1"
+            and r["status"] == "ok"]
+    name = torch.cuda.get_device_name(0)
+    check(all(r["card"] == name and r["power_limit"]
+              and isinstance(r["fits_card"], bool) for r in card),
+          "dry-run records without the card's name and power limit")
+    slow = sorted(card, key=lambda r: -r["t_lower_s"])[:3]
+    log(f"[dryrun] sweep: {lines[-1]} in {t_sweep:.1f} s of wall time "
+        f"(in the background while the held cells ran, {t_held:.1f} s, and "
+        f"the hill-climbs); traces {sum(r['t_lower_s'] for r in card):.1f} "
+        f"s in all, longest "
+        + ", ".join(f"{r['cell']} {r['t_lower_s']:.1f} s" for r in slow)
+        + f"; {sum(r['fits_card'] for r in card)} of {len(card)} traced "
+        f"cells fit the card")
+    for cell_name, (cell, m) in measured.items():
+        rec = recs[(cell_name, "1")]
+        roof, mem = rec["roofline"], rec["memory"]
+        traced = mem["argument_bytes"] + mem["temp_bytes"]
+        rel = (traced - m["peak"]) / m["peak"]
+        tc, tm = roof["t_compute_s"] * 1e3, roof["t_memory_s"] * 1e3
+        tm_l2 = roof["t_memory_over_l2_s"] * 1e3
+        classes = ", ".join(f"{c} {n / 1e9:.1f}" for c, n in
+                            sorted(roof["flops_by_class"].items()))
+        log(f"[dryrun] {cell_name}: GFLOP {classes or 'none'}; "
+            f"{roof['hbm_bytes'] / 1e9:.3f} GB moved "
+            f"({roof['hbm_bytes_over_l2'] / 1e9:.3f} GB by ops over the L2); "
+            f"Tc {tc:.3f} ms, Tm {tm:.3f} ms (over the L2 {tm_l2:.3f}), "
+            f"{roof['dominant']}-bound; measured {m['ms']:.3f} ms (median of "
+            f"{DRYRUN_REPEATS}, CUDA events), {m['ms'] / max(tc, tm):.3f}x "
+            f"max(Tc, Tm); peak traced {traced / 1e9:.3f} GB (argument "
+            f"{mem['argument_bytes'] / 1e9:.3f} + temporary "
+            f"{mem['temp_bytes'] / 1e9:.3f}) vs measured "
+            f"{m['peak'] / 1e9:.3f} GB ({rel:+.1%}); inputs made in "
+            f"{m['make_s']:.1f} s")
+        check(abs(rel) <= PEAK_RTOL,
+              (cell_name, "traced peak off the measured", traced, m["peak"]))
+        check(m["ms"] >= tm_l2,
+              (cell_name, "faster than its traced memory time", m["ms"],
+               tm_l2))
+        if cell.arch != "kspdg":
+            check(m["ms"] >= tc, (cell_name, "faster than its traced "
+                                  "compute time", m["ms"], tc))
+    for module, out_lines in hill.items():
+        for line in out_lines:
+            log(f"[dryrun] {module}: {line}")
+    log(f"[dryrun] {smi}; phase passed in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2423,6 +2737,11 @@ def main() -> int:
     phase_lm_serving(torch, np, dev, smi)
     torch.cuda.empty_cache()
     phase_training(torch, np, dev, smi)
+    torch.cuda.empty_cache()
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_dryrun(torch, np, dev, smi, Path(tmp))
 
     sources = {  # kernel -> (CUDA source, the TPU kernel it replaces)
         "bf_relax_step": ("bf_relax.cu", "src/repro/kernels/bf_relax.py:69"),

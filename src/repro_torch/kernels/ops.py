@@ -8,6 +8,15 @@ to the other.
 
 ``LAUNCHES`` counts kernel launches per wrapper, so a run can show that
 its main path went through the kernels (``reset_launches`` zeroes it).
+
+A tensor on the meta device is the caller's choice of "shapes only" (the
+dry-run, ``launch.roofline.trace_costs``): the wrapper returns empty meta
+outputs of the plain version's shapes and dtypes, reports the kernel's
+cost to every sink in ``COST_SINKS`` and launches and counts nothing.
+The cost is each input read once and each output written once, and the
+reference's min-plus count (``repro/launch/report.py``): 2·S·J·z² per
+BF relaxation, 2·S·k·z² per ktrop relaxation, 2·B·E for ``bound_dist``;
+a fixed point counts its iteration budget.
 """
 
 from __future__ import annotations
@@ -25,6 +34,11 @@ LAUNCHES = {"bf_relax_step": 0, "bf_solve_grouped": 0,
             "ktrop_relax_step": 0, "ktrop_solve": 0, "bound_dist": 0}
 
 
+#: callables ``sink(kernel, n_bytes, minplus_ops)`` that a shapes-only
+#: trace registers while it runs (``launch.roofline.trace_costs``)
+COST_SINKS: list = []
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
@@ -32,6 +46,20 @@ def reset_launches() -> None:
 
 def _on_cpu(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
+
+
+def _on_meta(t: torch.Tensor) -> bool:
+    return t.device.type == "meta"
+
+
+def _meta_out(kernel, n_bytes, minplus_ops, *outs):
+    """Report a kernel's cost and return its empty meta outputs, each
+    given as (shape, dtype)."""
+    for sink in COST_SINKS:
+        sink(kernel, int(n_bytes), float(minplus_ops))
+    made = tuple(torch.empty(shape, dtype=dtype, device="meta")
+                 for shape, dtype in outs)
+    return made[0] if len(made) == 1 else made
 
 
 def bf_relax_step(dist, adj, spur_onehot, banned_next, cap=None):
@@ -43,7 +71,12 @@ def bf_relax_step(dist, adj, spur_onehot, banned_next, cap=None):
     all ≤ INF relaxes only the row's finite entries, from a list built as
     the row streams in; any other block scans every entry.  Both give
     the plain version's bytes (``csrc/in_edges.cuh``)."""
-    S, J, _ = dist.shape
+    S, J, z = dist.shape
+    if _on_meta(dist):  # in: dist, adj, cap f32, two masks; out: f32
+        n = S * J * z
+        return _meta_out("bf_relax_step",
+                         4 * (2 * n + S * z * z + S * J) + 2 * n,
+                         2.0 * S * J * z * z, ((S, J, z), torch.float32))
     if cap is None:
         cap = torch.full((S, J), INF, dtype=torch.float32, device=dist.device)
     args = (dist.float().contiguous(), adj.float().contiguous(),
@@ -74,6 +107,17 @@ def bf_solve_grouped(adj, init, banned_v, spur_onehot, banned_next, cap,
     checks these per block and runs the dense loop over every entry where
     one fails.  Both give the plain version's bytes.  ``max_iters=0`` on
     a converged field returns the field and its parents."""
+    if _on_meta(init):  # in: adj, init, cap f32, three masks
+        S, J, z = init.shape
+        n, it = S * J * z, z if max_iters is None else int(max_iters)
+        outs = [((S, J, z), torch.float32), ((S, J, z), torch.int32)]
+        if with_iters:
+            outs.append(((S,), torch.int32))
+        return _meta_out(
+            "bf_solve_grouped",
+            4 * (S * z * z + n + S * J) + 3 * n + 8 * n
+            + (4 * S if with_iters else 0),
+            2.0 * S * J * z * z * it, *outs)
     args = (adj.float().contiguous(), init.float().contiguous(),
             banned_v.bool().contiguous(), spur_onehot.bool().contiguous(),
             banned_next.bool().contiguous(), cap.float().contiguous())
@@ -96,6 +140,11 @@ def ktrop_relax_step(D, adj):
     folds only its finite entries, from a list built as the row streams
     in; any other row scans every u; both give the plain version's
     bytes."""
+    if _on_meta(D):
+        S, k, z = D.shape
+        return _meta_out("ktrop_relax_step",
+                         4 * (2 * S * k * z + S * z * z),
+                         2.0 * S * k * z * z, ((S, k, z), torch.float32))
     args = (D.float().contiguous(), adj.float().contiguous())
     if _on_cpu(D):
         return ref.ktrop_relax_ref(*args)
@@ -118,6 +167,17 @@ def ktrop_solve(adj, src, k: int, max_iters: int | None = None,
     skipped entry's candidates are then ≥ INF and are never among the k
     smallest distinct values below INF.  A row with a negative weight
     folds every entry.  Both give the plain version's bytes."""
+    if _on_meta(adj):
+        S, z, _ = adj.shape
+        it = z * k + 8 if max_iters is None else int(max_iters)
+        outs = [((S, k, z), torch.float32)]
+        if with_iters:
+            outs.append(((S,), torch.int32))
+        return _meta_out(
+            "ktrop_solve",
+            4 * (S * z * z + S + S * k * z)
+            + (4 * S if with_iters else 0),
+            2.0 * S * k * z * z * it, *outs)
     adj = adj.float().contiguous()
     src = src.to(torch.int32).contiguous()
     if _on_cpu(adj):
@@ -142,6 +202,11 @@ def bound_dist(w_sorted, n_sorted, cum_before, sub, phi):
     and cum_before the exclusive running count of n (non-decreasing),
     which every caller meets (the ``maintain`` step builds it as
     cum_n − n).  φ and cum_before hold no NaN."""
+    if _on_meta(phi):  # in: three [S,E] f32, sub i32, phi f32; out f32
+        S, E = w_sorted.shape
+        B = phi.shape[0]
+        return _meta_out("bound_dist", 4 * (3 * S * E + 3 * B),
+                         2.0 * B * E, ((B,), torch.float32))
     args = (w_sorted.float().contiguous(), n_sorted.float().contiguous(),
             cum_before.float().contiguous(), sub.to(torch.int32).contiguous(),
             phi.float().contiguous())

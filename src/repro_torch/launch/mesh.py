@@ -110,6 +110,21 @@ def _local_devices(n_devices, device, group):
     return [dev] * n
 
 
+def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
+    """The reference's production mesh: 16×16 = 256 shards on ("data",
+    "model"), or with ``multi_pod`` 2×16×16 on ("pod", "data", "model"),
+    as logical shards of one device (the first card by default; no card
+    raises).  It starts no process group: the dry-run resolves per-device
+    shapes on it and runs nothing across it."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", 0)
+    return DeviceMesh(_local_devices(math.prod(shape), dev, None), shape,
+                      axes)
+
+
 def make_mesh(shape, axes, device="cuda"):
     """A mesh of ``prod(shape)`` shards over these axes (split evenly
     over the processes of the default group, when one runs)."""

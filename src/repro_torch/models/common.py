@@ -6,23 +6,30 @@ leaf (``repro_torch.convert``) and the checkpointer writes the
 reference's keys.  ``tree_map`` and ``tree_leaves`` walk such trees; like
 JAX's, they visit dict keys in sorted order.
 
-The logical-axis rules stay as data (``DEFAULT_RULES``); on one card
-``with_logical`` is an identity.  The reference's ``axis_rules``,
-``tree_shardings``, ``specs_shardings`` and ``replicated`` resolve axes
-against a JAX mesh for its TPU dry-run; they are ported with that driver.
+Sharding follows the MaxText-style *logical axis* pattern: every param
+carries a tuple of logical axis names; a rules dict (``DEFAULT_RULES``)
+maps logical names to mesh axes.  ``axis_rules``, ``logical_pspec``,
+``tree_shardings`` and ``specs_shardings`` resolve them against a
+``launch.mesh.DeviceMesh`` (its ``axis_names`` and ``shape``) into
+:class:`NamedSharding` objects whose ``spec`` is a plain tuple, one entry per
+dimension: None, a mesh-axis name or a tuple of names (the reference's
+``PartitionSpec``).  The dry-run uses them for per-device argument bytes
+(``shard_shape``); on one card ``with_logical`` is an identity.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import threading
 from typing import Any
 
 import torch
 import torch.nn.functional as F
 
 # ---------------------------------------------------------------------------
-# logical axis rules (data: nothing resolves them on one card)
+# logical axis rules
 # ---------------------------------------------------------------------------
 # 'embed' (d_model) is the FSDP axis; 'heads'/'mlp'/'vocab'/'experts' are the
 # tensor/expert-parallel axes; 'batch' is pure data parallel.
@@ -57,10 +64,148 @@ DEFAULT_RULES: dict[str, Any] = {
 }
 
 
+class _Ctx(threading.local):
+    def __init__(self):
+        self.mesh = None
+        self.rules = DEFAULT_RULES
+
+
+_CTX = _Ctx()
+
+
+@contextlib.contextmanager
+def axis_rules(mesh, rules: dict | None = None):
+    """Activate (mesh, rules) for logical sharding constraints."""
+    old = (_CTX.mesh, _CTX.rules)
+    _CTX.mesh = mesh
+    _CTX.rules = dict(DEFAULT_RULES, **(rules or {}))
+    try:
+        yield
+    finally:
+        _CTX.mesh, _CTX.rules = old
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A resolved spec on a mesh: ``spec`` holds one entry per leading
+    dimension (None, a mesh-axis name or a tuple of names); dimensions
+    past its end are replicated."""
+
+    mesh: Any
+    spec: tuple
+
+    def shard_shape(self, shape) -> tuple:
+        return shard_shape(shape, self.spec, self.mesh)
+
+
+def _resolve(axes: tuple, rules: dict, mesh) -> tuple:
+    """Logical axes → spec tuple, dropping mesh axes absent from mesh."""
+    names = set(mesh.axis_names) if mesh is not None else set()
+
+    def fix(a):
+        r = rules.get(a)
+        if r is None:
+            return None
+        if isinstance(r, (tuple, list)):
+            kept = tuple(x for x in r if x in names)
+            return kept if kept else None
+        return r if r in names else None
+
+    used: set = set()
+    out = []
+    for a in axes:
+        r = fix(a)
+        # a mesh axis may appear only once per spec; later dims replicate
+        flat = r if isinstance(r, tuple) else (r,)
+        if r is not None and any(x in used for x in flat if x):
+            r = None
+        if r is not None:
+            used.update(x for x in flat if x)
+        out.append(r)
+    return tuple(out)
+
+
+def logical_pspec(axes: tuple, mesh=None, rules: dict | None = None) -> tuple:
+    mesh = mesh if mesh is not None else _CTX.mesh
+    rules = dict(DEFAULT_RULES, **(rules or {})) if rules else _CTX.rules
+    return _resolve(axes, rules, mesh)
+
+
 def with_logical(x: torch.Tensor, axes: tuple) -> torch.Tensor:
     """The reference's sharding constraint by logical axes: an identity
     on one card."""
     return x
+
+
+def _is_axes(x) -> bool:
+    return isinstance(x, tuple) and all(isinstance(a, (str, type(None)))
+                                        for a in x)
+
+
+def tree_shardings(axes_tree, mesh, rules: dict | None = None):
+    """Mirror an axes tree into NamedShardings (a tuple of axis names,
+    or (), is a leaf)."""
+    rules = dict(DEFAULT_RULES, **(rules or {}))
+
+    def walk(t):
+        if _is_axes(t):
+            return NamedSharding(mesh, _resolve(t, rules, mesh))
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        return type(t)(walk(v) for v in t)
+
+    return walk(axes_tree)
+
+
+def _axis_size(mesh, r) -> int:
+    sizes = mesh.shape
+    if isinstance(r, tuple):
+        n = 1
+        for x in r:
+            n *= sizes[x]
+        return n
+    return sizes[r]
+
+
+def specs_shardings(specs_tree, axes_tree, mesh, rules: dict | None = None):
+    """NamedShardings for a tree of ``TensorSpec`` leaves, dropping (or
+    shrinking) the sharding of any dimension whose size is not divisible
+    by the mapped mesh-axis product — e.g. batch=1 decode stays
+    replicated over 'data' while its KV cache still shards over
+    'model'."""
+    rules = dict(DEFAULT_RULES, **(rules or {}))
+
+    def resolve(spec, axes):
+        base = _resolve(tuple(axes), rules, mesh)
+        fixed = []
+        for dim, r in zip(spec.shape, tuple(base) + (None,) * (len(spec.shape) - len(base))):
+            if r is None:
+                fixed.append(None)
+                continue
+            cand = r if isinstance(r, tuple) else (r,)
+            # greedily drop trailing axes until divisible
+            while cand and dim % _axis_size(mesh, tuple(cand)) != 0:
+                cand = cand[:-1]
+            fixed.append(tuple(cand) if len(cand) > 1 else (cand[0] if cand else None))
+        return NamedSharding(mesh, tuple(fixed))
+
+    return tree_map(resolve, specs_tree, axes_tree)
+
+
+def replicated(mesh):
+    return NamedSharding(mesh, ())
+
+
+def shard_shape(shape, spec: tuple, mesh) -> tuple:
+    """The per-device shape of an array of ``shape`` under ``spec`` on
+    ``mesh``: each dimension over the product of its mesh axes, rounded
+    up (an uneven last shard is padded, as XLA pads it)."""
+    out = []
+    for i, dim in enumerate(shape):
+        r = spec[i] if i < len(spec) else None
+        n = 1 if r is None else _axis_size(mesh, r)
+        out.append(-(-int(dim) // n))
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------

@@ -53,7 +53,12 @@ def test_import_leaves_jax_and_reference_unloaded():
         "repro_torch.models.transformer, repro_torch.serve.engine, "
         "repro_torch.train.steps, repro_torch.ckpt.checkpoint, "
         "repro_torch.launch.train, repro_torch.models.gnn, "
-        "repro_torch.models.bst, repro_torch.data.pipeline\n"
+        "repro_torch.models.bst, repro_torch.data.pipeline, "
+        "repro_torch.launch.dryrun, repro_torch.launch.roofline, "
+        "repro_torch.launch.rooffit, repro_torch.launch.report, "
+        "repro_torch.launch.experiments_md, "
+        "repro_torch.launch.hillclimb_gemma, "
+        "repro_torch.launch.hillclimb_bst\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') or "
         "m.startswith(('jax.', 'repro.')))\n"
         "print(bad)\n"
