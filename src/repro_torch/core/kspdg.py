@@ -46,6 +46,8 @@ class QueryStats:
     refine_tasks: int = 0
     cache_hits: int = 0
     partial_paths: int = 0
+    join_pops: int = 0  # segment combinations the joins popped
+    join_paths: int = 0  # of those, the simple paths the joins kept
     # True when the iteration guard fired before Theorem 3's stopping
     # rule: the result is best-effort, not provably exact.  Happens on
     # geodesic corridors dense with boundary vertices, where the skeleton
@@ -259,8 +261,13 @@ def _partial_ksps(
     return merged[:k]
 
 
-def _k_best_joins(segments: list[list[tuple[float, tuple]]], k: int):
-    """k best simple concatenations, one entry per segment (lazy heap)."""
+def _k_best_joins(segments: list[list[tuple[float, tuple]]], k: int,
+                  stats: QueryStats | None = None):
+    """k best simple concatenations, one entry per segment (lazy heap).
+
+    ``stats``, when given, gains the combinations popped (``join_pops``)
+    and the simple paths kept (``join_paths``): their ratio is the join's
+    yield."""
     m = len(segments)
     if any(not seg for seg in segments):
         return []
@@ -269,8 +276,10 @@ def _k_best_joins(segments: list[list[tuple[float, tuple]]], k: int):
     heap = [(start_d, first)]
     visited = {first}
     out = []
+    pops = 0
     while heap and len(out) < k:
         d, idx = heapq.heappop(heap)
+        pops += 1
         # join the paths: consecutive segments share their joint vertex
         verts: list[int] = []
         ok = True
@@ -286,7 +295,66 @@ def _k_best_joins(segments: list[list[tuple[float, tuple]]], k: int):
                     visited.add(nxt)
                     nd = d - segments[j][idx[j]][0] + segments[j][idx[j] + 1][0]
                     heapq.heappush(heap, (nd, nxt))
+    if stats is not None:
+        stats.join_pops += pops
+        stats.join_paths += len(out)
     return out
+
+
+def _timed(name: str, fn, *args, **attrs):
+    """``fn(*args)``, recorded as the span ``name`` when tracing is on.
+
+    The stepper's spans (``skeleton``, ``ref_build``, ``ref_next``,
+    ``cohort``, ``stop_scan``) go through here: with tracing off a call
+    pays one flag test and reads no clock, since no stats counter wants
+    these durations."""
+    if not obs.enabled():
+        return fn(*args)
+    t0 = obs.clock()
+    out = fn(*args)
+    obs.span_at(name, t0, obs.clock() - t0, **attrs)
+    return out
+
+
+def _cohort_pairs(cohort, global_of_ext, stats: QueryStats):
+    """One cohort's refine pairs, ordered and de-duplicated, and each
+    simple reference's pair indices; non-simple walks are counted in
+    ``stats.walks_skipped`` and dropped."""
+    pair_index: dict = {}
+    pairs: list[tuple] = []
+    ref_pairs: list[list[int]] = []
+    for _, ref_path_ext in cohort:
+        ref_path = [global_of_ext[v] for v in ref_path_ext]
+        if len(set(ref_path)) != len(ref_path):
+            stats.walks_skipped += 1
+            continue
+        idxs = []
+        for a, b in zip(ref_path, ref_path[1:]):
+            j = pair_index.get((a, b))
+            if j is None:
+                j = len(pairs)
+                pair_index[(a, b)] = j
+                pairs.append((a, b))
+            idxs.append(j)
+        ref_pairs.append(idxs)
+    return pairs, ref_pairs
+
+
+def _skip_walks(pending, pull, bound, ref_budget, global_of_ext,
+                stats: QueryStats):
+    """The stop rule's scan: consume the non-simple walks at or below
+    ``bound`` ahead of the next simple reference; returns the first
+    reference not consumed (None once the stream runs dry)."""
+    while (pending is not None
+           and stats.references < ref_budget
+           and pending[0] <= bound + TIE_EPS):
+        ref_path = [global_of_ext[v] for v in pending[1]]
+        if len(set(ref_path)) == len(ref_path):
+            break  # simple: its weight is the sharp bound
+        stats.references += 1
+        stats.walks_skipped += 1
+        pending = pull()
+    return pending
 
 
 @dataclasses.dataclass
@@ -352,6 +420,15 @@ def ksp_dg_stepper(
     (``finalize``); ``None`` is the plain top-k query.  Refine depth and
     :class:`RefineRequest.k` follow ``solve_k``, so the scheduler's
     cross-query dedup keys stay correct automatically.
+
+    With tracing on, the stepper records spans on the ambient track, so
+    they nest inside whatever span drove it (the scheduler's ``admit``
+    or ``splice``): ``skeleton`` (the extended skeleton), ``ref_build``
+    (the reference stream's construction), ``ref_next`` (each pull from
+    the stream), ``cohort`` (a cohort's references mapped to refine
+    pairs), ``join`` (one iteration's joins and their fold into L, with
+    the combinations popped and the simple paths kept) and ``stop_scan``
+    (the stop rule's scan past non-simple walks, its pulls included).
     """
     policy = variant if variant is not None else _PLAIN
     solve_k = policy.solve_k(k)
@@ -361,13 +438,15 @@ def ksp_dg_stepper(
     stats = QueryStats()
     if s == t:
         return policy.finalize([(0.0, (s,))], k, stats, directed), stats
-    view, ext_id, global_of_ext, home = _extended_skeleton(dtlp, s, t)
+    view, ext_id, global_of_ext, home = _timed(
+        "skeleton", _extended_skeleton, dtlp, s, t, s=s, t=t)
     es, et = ext_id(s), ext_id(t)
     # per-target sidetrack trees are reusable across queries only on the
     # un-spliced base skeleton (no home ⇒ no per-query extra vertices)
     tree_cache = dtlp.ref_tree_cache() if not home else None
-    refs = spec.factory(view, es, et, dtlp.graph.directed,
-                        tree_cache=tree_cache)
+    refs = _timed("ref_build",
+                  lambda: spec.factory(view, es, et, dtlp.graph.directed,
+                                       tree_cache=tree_cache), s=s, t=t)
 
     L: list[tuple[float, tuple]] = []
     L_set = set()
@@ -377,16 +456,21 @@ def ksp_dg_stepper(
     # reference budget bounds raw stream consumption so a lazy stream
     # cannot spin forever skipping non-simple walks between refines
     ref_budget = max_iterations * batch
-    pending = next(refs, None)
+
+    def pull():
+        return _timed("ref_next", next, refs, None, s=s, t=t,
+                      iteration=stats.iterations)
+
+    pending = pull()
     while (pending is not None and stats.iterations < max_iterations
            and stats.references < ref_budget):
         cohort = [pending]
-        pending = next(refs, None)
+        pending = pull()
         while (pending is not None and len(cohort) < batch
                and stats.references + len(cohort) < ref_budget
                and pending[0] <= cohort[0][0] + TIE_EPS):
             cohort.append(pending)
-            pending = next(refs, None)
+            pending = pull()
         stats.references += len(cohort)
         # ordered de-dup of the cohort's refine pairs: tied references on
         # a corridor mostly cross the same boundary pairs, so the request
@@ -396,37 +480,26 @@ def ksp_dg_stepper(
         # contains the walk's full vertex sequence, so the repeated
         # vertex makes every candidate non-simple — refining one is pure
         # waste.
-        pair_index: dict = {}
-        pairs: list[tuple] = []
-        ref_pairs: list[list[int]] = []
-        for _, ref_path_ext in cohort:
-            ref_path = [global_of_ext[v] for v in ref_path_ext]
-            if len(set(ref_path)) != len(ref_path):
-                stats.walks_skipped += 1
-                continue
-            idxs = []
-            for a, b in zip(ref_path, ref_path[1:]):
-                j = pair_index.get((a, b))
-                if j is None:
-                    j = len(pairs)
-                    pair_index[(a, b)] = j
-                    pairs.append((a, b))
-                idxs.append(j)
-            ref_pairs.append(idxs)
+        pairs, ref_pairs = _timed("cohort", _cohort_pairs, cohort,
+                                  global_of_ext, stats, s=s, t=t,
+                                  iteration=stats.iterations)
         if pairs:
             stats.iterations += 1
-            obs.event("ksp_iteration", s=s, t=t,
-                      iteration=stats.iterations, pairs=len(pairs),
-                      references=stats.references)
             seg_lists = yield RefineRequest(pairs=pairs, home=home,
                                             k=solve_k, stats=stats)
             if isinstance(seg_lists, dict):
                 # out-of-order delivery: per-worker pipelines answer in
                 # completion order, keyed by pair index — realign here
                 seg_lists = [seg_lists[j] for j in range(len(pairs))]
+            # one ``join`` span per iteration: every reference's joins
+            # and their fold into L
+            tracing = obs.enabled()
+            if tracing:
+                t_join = obs.clock()
+                pops0, kept0 = stats.join_pops, stats.join_paths
             for idxs in ref_pairs:
                 for d, p in _k_best_joins([seg_lists[j] for j in idxs],
-                                          solve_k):
+                                          solve_k, stats):
                     if p not in L_set:
                         L_set.add(p)
                         L.append((d, p))
@@ -434,6 +507,12 @@ def ksp_dg_stepper(
             for d_, p_ in L[solve_k:]:
                 L_set.discard(p_)
             L = L[:solve_k]
+            if tracing:
+                obs.span_at("join", t_join, obs.clock() - t_join, s=s, t=t,
+                            iteration=stats.iterations, pairs=len(pairs),
+                            references=stats.references,
+                            join_pops=stats.join_pops - pops0,
+                            join_paths=stats.join_paths - kept0)
         # the variant policy names the Theorem-3 bound: the weight at or
         # below which the answer is already decided (L[k-1] for plain
         # top-k; see core.variants for the bounded/diverse forms)
@@ -447,15 +526,9 @@ def ksp_dg_stepper(
             # reference — or until any walk already outweighs the bound,
             # which certifies the stop on its own; the reference budget
             # bounds the scan on walk-dense tie plateaus.
-            while (pending is not None
-                   and stats.references < ref_budget
-                   and pending[0] <= bound + TIE_EPS):
-                ref_path = [global_of_ext[v] for v in pending[1]]
-                if len(set(ref_path)) == len(ref_path):
-                    break  # simple: its weight is the sharp bound
-                stats.references += 1
-                stats.walks_skipped += 1
-                pending = next(refs, None)
+            pending = _timed("stop_scan", _skip_walks, pending, pull, bound,
+                             ref_budget, global_of_ext, stats, s=s, t=t,
+                             iteration=stats.iterations)
             if pending is None or policy.stop_at(bound, pending[0]):
                 break
     else:

@@ -73,8 +73,15 @@ def _collect_round(pending):
     if pending is None:
         return []
     dist, parent, slots = pending
+    # the ``collect_round`` span: the host blocked on the round and its
+    # copy back; its own clock pair, read only when tracing is on
+    tracing = obs.enabled()
+    if tracing:
+        t0 = obs.clock()
     dist = dist.cpu().numpy()
     parent = parent.cpu().numpy()
+    if tracing:
+        obs.span_at("collect_round", t0, obs.clock() - t0, jobs=len(slots))
     return [(dist[sr, j], parent[sr, j]) for sr, j in slots]
 
 

@@ -1,43 +1,43 @@
-"""repro.obs — tracing, metrics, and a flight recorder for the serving
-stack.
+"""repro_torch.obs — tracing, metrics, and a flight recorder for the
+serving stack.
 
-Three pillars, one import, no dependency on the rest of ``repro`` (so
-every layer — core stepper, engine backends, cluster, scheduler,
+Three pillars, one import, no dependency on the rest of ``repro_torch``
+(so every layer — core stepper, engine backends, cluster, scheduler,
 service — can instrument itself without cycles):
 
-* **Tracing** (:mod:`repro.obs.trace`): near-zero-overhead spans.
-  ``obs.span("solve", worker=wid)`` is the context-manager form,
-  ``@obs.traced("stage")`` the decorator form, and ``obs.span_at(name,
-  t0, dur, ...)`` records a stage the caller already timed — the form
-  the scheduler/cluster hot paths use so the SAME two ``obs.clock()``
-  reads feed both the stats counters (``working_s``,
-  ``worker_busy_s``) and the trace, one source of truth with no
-  drift.  The collector exports Chrome-trace/Perfetto JSON
-  (``obs.export(path)``) with one timeline per worker.
-* **Metrics** (:mod:`repro.obs.metrics`): counters / gauges /
+* **Tracing** (:mod:`repro_torch.obs.trace`): ``obs.span_at(name, t0,
+  dur, ...)`` records a stage the caller timed on ``obs.clock()``.
+  Where a stats counter wants the duration anyway (the scheduler's
+  ``working_s``, ``worker_busy_s``), the SAME two clock reads feed the
+  counter and the trace, one source of truth with no drift; where none
+  does (the KSP-DG stepper's spans, ``collect_round``), the caller reads
+  the clock only when :func:`enabled`.  The collector exports
+  Chrome-trace/Perfetto JSON (``obs.export(path)``) with one timeline
+  per worker.
+* **Metrics** (:mod:`repro_torch.obs.metrics`): counters / gauges /
   fixed-bucket mergeable histograms behind a :class:`MetricsRegistry`
   — always on (it replaces accounting the stack already did);
   ``KSPService.snapshot()`` is the one consumer-facing schema.
-* **Flight recorder** (:mod:`repro.obs.recorder`): bounded per-track
-  rings of recent records, dumped by the service on exceptions and
-  deadline-rejection storms for post-mortem diagnosis of stalls that
-  a full trace re-run may never reproduce.
+* **Flight recorder** (:mod:`repro_torch.obs.recorder`): bounded
+  per-track rings of recent records, dumped by the service on
+  exceptions and deadline-rejection storms for post-mortem diagnosis of
+  stalls that a full trace re-run may never reproduce.
 
 **The disabled path is a single branch** on the module-level
-``_STATE.enabled`` flag: every recording entry point
-(``span_at``/``event``/``span``) checks it and returns immediately —
-``span`` hands back the no-op singleton — so an untraced service pays
-one flag test per instrumentation site (gated ≤ 2% end-to-end by
-``benchmarks/bench_obs.py``).  ``obs.clock`` is ``time.perf_counter``
-and always works; timing-derived *stats* never turn off, only record
-*collection* does.
+``_STATE.enabled`` flag: ``span_at`` checks it and returns
+immediately, so an untraced service pays one flag test per
+instrumentation site.  What that costs end to end is measured by the
+benchmark (``kspbench``): the city-open cell's untraced run, against
+the same run of the parent commit.  ``obs.clock`` is
+``time.perf_counter`` and always works; timing-derived *stats* never
+turn off, only record *collection* does.
 
 State is process-global and single-threaded by design (the runtime is
 an in-process cluster; the scheduler pump is one thread).  Enable modes:
 
     obs.enable(trace=True)     # full capture: export + flight recorder
     obs.enable(trace=False)    # flight-recorder only: bounded memory
-    obs.disable()              # default: no-op singleton everywhere
+    obs.disable()              # default: nothing is recorded
 
 or set ``REPRO_OBS=flight`` / ``REPRO_OBS=trace`` in the environment to
 enable at import (how CI keeps post-mortem rings live without code
@@ -46,7 +46,6 @@ changes).
 
 from __future__ import annotations
 
-import functools
 import os
 import time
 from types import SimpleNamespace
@@ -68,10 +67,7 @@ __all__ = [
     "enable",
     "disable",
     "get_collector",
-    "span",
     "span_at",
-    "event",
-    "traced",
     "worker_scope",
     "export",
     "flight_dump",
@@ -134,107 +130,13 @@ def _tid(attrs: dict) -> int:
 def span_at(name: str, t0: float, dur: float, **attrs) -> None:
     """Record one ALREADY-TIMED stage as a completed span.
 
-    The hot-path form: the caller read ``obs.clock()`` before and after
-    the stage (because its stats wanted the duration anyway) and hands
-    both in — no extra clock reads, and the trace shows exactly the
-    interval the stats counted.  One branch when disabled.
+    The caller read ``obs.clock()`` before and after the stage and
+    hands both in; where its stats wanted the duration anyway, the
+    trace shows exactly the interval the stats counted.  One branch
+    when disabled.
     """
     if _STATE.enabled:
         _STATE.collector.record("span", name, t0, dur, _tid(attrs), attrs)
-
-
-def event(name: str, **attrs) -> None:
-    """Record one instant event.  One branch when disabled."""
-    if _STATE.enabled:
-        _STATE.collector.record(
-            "event", name, clock(), 0.0, _tid(attrs), attrs
-        )
-
-
-class _NoopSpan:
-    """The do-nothing span singleton ``span()`` returns when disabled."""
-
-    __slots__ = ()
-
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        return False
-
-    def set(self, **attrs):
-        return self
-
-
-NOOP_SPAN = _NoopSpan()
-
-
-class _Span:
-    """A live span: times ``__enter__`` → ``__exit__`` on ``obs.clock``
-    and records on exit.  ``set(**attrs)`` adds attributes mid-flight
-    (e.g. a result count known only at the end of the stage)."""
-
-    __slots__ = ("name", "attrs", "_t0")
-
-    def __init__(self, name: str, attrs: dict):
-        self.name = name
-        self.attrs = attrs
-        self._t0 = 0.0
-
-    def __enter__(self):
-        self._t0 = clock()
-        return self
-
-    def set(self, **attrs):
-        self.attrs.update(attrs)
-        return self
-
-    def __exit__(self, exc_type, exc, tb):
-        if exc_type is not None:
-            self.attrs.setdefault("error", exc_type.__name__)
-        # re-check: disable() may have raced the span's lifetime
-        if _STATE.enabled:
-            _STATE.collector.record(
-                "span", self.name, self._t0, clock() - self._t0,
-                _tid(self.attrs), self.attrs,
-            )
-        return False
-
-
-def span(name: str, **attrs):
-    """Context-manager span: ``with obs.span("splice", qid=7): ...``.
-
-    Returns the no-op singleton when disabled (one branch, zero
-    allocation); a record with a ``worker=wid`` attr lands on that
-    worker's timeline, anything else on the ambient track (see
-    :func:`worker_scope`).
-    """
-    if not _STATE.enabled:
-        return NOOP_SPAN
-    return _Span(name, attrs)
-
-
-def traced(name: str | None = None, **attrs):
-    """Decorator span form: ``@obs.traced("rebaseline")``.
-
-    Late-binding: the flag is checked at each CALL, so functions
-    decorated while tracing is off still trace once it turns on (a
-    decoration-time check would freeze the import-order state in).
-    """
-
-    def deco(fn):
-        span_name = fn.__qualname__ if name is None else name
-
-        @functools.wraps(fn)
-        def wrapped(*args, **kwargs):
-            if not _STATE.enabled:
-                return fn(*args, **kwargs)
-            with span(span_name, **attrs):
-                return fn(*args, **kwargs)
-
-        return wrapped
-
-    return deco
 
 
 class worker_scope:
