@@ -32,13 +32,18 @@ phase that does not hold:
    J in {8, 32}), bitwise and timed, and there also ``bf_relax_step``
    and the parent epilogue (``max_iters=0``) bitwise against their plain
    versions;
-5. serving: ``KSPService(engine="cuda_bf", device="cuda")`` answers 32
+5. the index build: the 64x64 road grid's DTLP index (z=32, xi=4, the
+   city-open network) built on the card, one ``ktrop_solve`` and one
+   ``level_walks`` launch, every boundary source and walk batched; then
+   ``level_walks`` on the build's own inputs bitwise against its plain
+   version, and timed;
+   serving: ``KSPService(engine="cuda_bf", device="cuda")`` answers 32
    queries (trips of 8-16 hops), one UpdateBatch, and 32 more on a
    64x64 road grid; the same trace on the port's plain ``dense_bf``
    engine must give the same (paths, epoch), a few answers must match
    host Yen on the full graph, and the serving run must have launched
-   ``bf_solve_grouped`` (the DTLP index is built once; each service
-   serves its own copy);
+   ``bf_solve_grouped`` (each service serves its own copy of that
+   index);
    then the multi-device path: ``shard_refine.make_refine_fn`` with
    ``CudaBackend`` at the refine_dense shape on a 1-shard mesh of the
    card and on 2 logical shards of it, bitwise the fused solve, with
@@ -805,21 +810,89 @@ def local_trips(np, g, n, rng, lo=8, hi=16):
 _INDEX = {}
 
 
-def build_service(engine, mesh=None, update_mode="barrier"):
-    """A fresh copy of the 64x64 road grid's DTLP index (z=32, xi=4) and
-    a 4-worker service on the card (on ``mesh`` if given).  The index is
-    built once (tens of seconds of host work) and each service gets its
-    own copy, unpickled from the bytes of the first build, since serving
-    an update changes the index."""
+def phase_index_build(torch, np):
+    """The 64x64 road grid's DTLP index (z=32, xi=4: city-open's network)
+    built on the card, as ``KSPService.build`` builds it there.  The
+    launch counts are set to 0 just before the build and read just after:
+    one ``ktrop_solve`` and one ``level_walks``, every boundary source and
+    every walk batched (``host_sources`` 0).  Then ``level_walks`` on the
+    build's own inputs against ``ref.level_walks_ref`` on the card, every
+    length and every vertex and edge id of a walk equal, and timed beside
+    its bound.  The index is kept for the serving phases."""
     from repro_torch.core.dtlp import DTLP
     from repro_torch.data.roadnet import grid_road_network
+    from repro_torch.kernels import ops, ref
+
+    calls = []
+    launch = ops.level_walks
+
+    def recording(*args):
+        calls.append(args)
+        return launch(*args)
+
+    g = grid_road_network(64, 64, seed=SEED)
+    ops.level_walks = recording
+    try:
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        d = DTLP.build(g, z=32, xi=4, device="cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+    finally:
+        ops.level_walks = launch
+    st = d.stats
+    n_src = sum(int(sg.boundary_local.shape[0])
+                for sg in d.partition.subgraphs)
+    check(launches["ktrop_solve"] == 1 and launches["level_walks"] == 1
+          and len(calls) == 1, ("index build launches", launches))
+    (args,) = calls
+    D, W = args[0], args[9].shape[0]
+    check((st.device_sources, st.host_sources, st.device_walks)
+          == (n_src, 0, W), ("index build counts", st))
+    _INDEX["build_s"] = build_s
+    _INDEX["bytes"] = pickle.dumps(d, protocol=pickle.HIGHEST_PROTOCOL)
+
+    want, plain_ms = timed(torch, lambda: ref.level_walks_ref(*args))
+    got = ops.level_walks(*args)
+    torch.cuda.synchronize()
+    col = torch.arange(D.shape[2], device=D.device)
+    n = want[2].long()[:, None]
+    errs = [max_abs_err(torch, got[2], want[2])] + [
+        max_abs_err(torch, a[mask], b[mask]) if bool(mask.any()) else 0.0
+        for a, b, mask in ((got[0], want[0], col < n),
+                           (got[1], want[1], col < n - 1))]
+    check(max(errs) == 0.0, ("level_walks differs from plain", errs))
+    check(st.simple_walks == int((want[2] > 0).sum()),
+          ("simple walks", st.simple_walks))
+    ms = cuda_ms(torch, lambda: ops.level_walks(*args), repeats=7)
+    # inputs read once, each vertex and edge id of a simple walk and
+    # every length written once
+    n_bytes = (sum(t.numel() * t.element_size() for t in args)
+               + 8 * int(want[2].sum()) + 4 * W)
+    kb, kby = bound_ms(n_bytes, 0.0)
+    S, k, z = D.shape
+    log(f"[index] DTLP build of the 64x64 grid on the card: {build_s:.2f} s "
+        f"(bounding {st.bounding_s:.2f} s); {st.device_sources} sources and "
+        f"{st.device_walks} walks batched ({st.simple_walks} simple), "
+        f"{st.host_sources} on the host; launches {launches}; level_walks "
+        f"(S={S} k={k} z={z}, {W} walks, {args[5].shape[0]} in-edges) "
+        f"{ms:.3f} ms (median of 7), plain {plain_ms:.1f} ms, bound "
+        f"{kb:.4f} ms ({kby}); every walk equal to plain")
+    return launches, {"level_walks": dict(
+        ms=ms, plain_ms=plain_ms, bound_ms=kb, bound_by=kby,
+        max_abs_err=max(errs), walks=W, shape=[S, k, z])}
+
+
+def build_service(engine, mesh=None, update_mode="barrier"):
+    """A fresh copy of the 64x64 road grid's DTLP index, as
+    :func:`phase_index_build` built it on the card, and a 4-worker
+    service on the card (on ``mesh`` if given).  Each service gets its
+    own copy, unpickled from the bytes of the build, since serving an
+    update changes the index."""
     from repro_torch.service import KSPService, ServiceConfig
 
-    if not _INDEX:
-        t0 = time.perf_counter()
-        d = DTLP.build(grid_road_network(64, 64, seed=SEED), z=32, xi=4)
-        _INDEX["build_s"] = time.perf_counter() - t0
-        _INDEX["bytes"] = pickle.dumps(d, protocol=pickle.HIGHEST_PROTOCOL)
+    check(_INDEX, "the serving phases need phase_index_build's index")
     d = pickle.loads(_INDEX["bytes"])
     svc = KSPService(d, ServiceConfig(engine=engine, n_workers=4,
                                       device="cuda", max_in_flight=8,
@@ -2706,7 +2779,11 @@ def main() -> int:
     timings = phase_refine_dense(torch, dev, cells["refine_dense"])
     timings["bf_solve_grouped"]["serving_shape_ms"] = phase_serving_shape(
         torch, dev)
+    index_launches, index_timings = phase_index_build(torch, np)
+    timings.update(index_timings)
     launches, answers, serving_stats = phase_serving(torch, np)
+    launches = {name: n + index_launches[name]
+                for name, n in launches.items()}
     torch.cuda.empty_cache()
     mesh_refine = phase_mesh_refine(torch, dev, dict(
         ms=timings["bf_solve_grouped"]["ms"],
@@ -2751,6 +2828,8 @@ def main() -> int:
         "ktrop_solve": ("ktrop.cu", "src/repro/kernels/ktrop.py:56"),
         "bound_dist": ("bound_dist.cu",
                        "src/repro/kernels/bound_dist.py:36"),
+        "level_walks": ("level_walk.cu", "none (the host walk, "
+                        "src/repro/core/bounding.py::extract_level_path)"),
     }
     check(launches["ktrop_solve"] > 0 and launches["bound_dist"] > 0,
           ("the index cells did not launch their kernels", launches))

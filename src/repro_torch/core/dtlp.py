@@ -253,6 +253,14 @@ class UpdatePlan:
 
 @dataclasses.dataclass
 class BuildStats:
+    """Timings and sizes of one build.  ``device_sources``: boundary
+    sources whose level DP ran in the batched pass on the index's device;
+    ``host_sources``: sources whose DP ran on the host (every source of a
+    CPU build; on a card, those the batch cannot hold, see
+    ``core.bounding_batch``); ``device_walks``: level walks the walk
+    kernel rebuilt; ``simple_walks``: walks of the build that came back
+    simple."""
+
     partition_s: float = 0.0
     bounding_s: float = 0.0
     compact_s: float = 0.0
@@ -261,6 +269,10 @@ class BuildStats:
     n_pairs: int = 0
     ebp_slots: int = 0
     mptree_slots: int = 0
+    device_sources: int = 0
+    host_sources: int = 0
+    device_walks: int = 0
+    simple_walks: int = 0
 
     @property
     def total_s(self) -> float:
@@ -281,6 +293,7 @@ class DTLP:
         lbd_mode: str,
         stats: BuildStats,
         z: int | None = None,
+        device: str | None = None,
     ):
         self.graph = graph
         self.partition = partition
@@ -288,6 +301,7 @@ class DTLP:
         self.skeleton = skeleton
         self.edge_owner = edge_owner
         self.z = z  # partition size bound the index was built with
+        self.device = device  # where the bounding stage runs (None: host)
         self.xi = xi
         self.lbd_mode = lbd_mode
         self.stats = stats
@@ -309,7 +323,14 @@ class DTLP:
         lsh_h: int = 20,
         lsh_b: int = 2,
         seed: int = 0,
+        device=None,
     ) -> "DTLP":
+        """Partition ``graph`` into subgraphs of at most ``z`` vertices and
+        build both levels.  ``device`` is where the index serves: on a
+        card the bounding stage runs as one batched pass there
+        (``core.bounding_batch``); None or a CPU device keeps the
+        per-source host build."""
+        device = _bounding_device(device)
         stats = BuildStats()
         t0 = time.perf_counter()
         part = partition_graph(graph, z, seed=seed)
@@ -319,11 +340,8 @@ class DTLP:
         edge_owner = np.full(graph.m, -1, dtype=np.int64)
         for sg in part.subgraphs:
             edge_owner[sg.edges] = sg.gid
-        sub_indexes = []
-        for sg in part.subgraphs:
-            sub_indexes.append(
-                _build_subgraph_index(graph, sg, xi, lbd_mode)
-            )
+        sub_indexes = build_subgraph_indexes(graph, part.subgraphs, xi,
+                                             lbd_mode, stats, device)
         stats.bounding_s = time.perf_counter() - t0
 
         t0 = time.perf_counter()
@@ -350,7 +368,7 @@ class DTLP:
         stats.n_paths = sum(si.path_phi.shape[0] for si in sub_indexes)
         stats.n_pairs = sum(si.pairs.shape[0] for si in sub_indexes)
         return cls(graph, part, sub_indexes, skeleton, edge_owner, xi,
-                   lbd_mode, stats, z=int(z))
+                   lbd_mode, stats, z=int(z), device=device)
 
     # ------------------------------------------------------- maintenance
     def apply_updates(self, eids: np.ndarray, new_w: np.ndarray, *,
@@ -520,10 +538,9 @@ class DTLP:
         g = self.graph
         g.w0 = g.w.copy()
         g.vfrag = np.maximum(1, np.rint(g.w0)).astype(np.int64)
-        self.sub_indexes = [
-            _build_subgraph_index(g, sg, self.xi, self.lbd_mode)
-            for sg in self.partition.subgraphs
-        ]
+        self.sub_indexes = build_subgraph_indexes(
+            g, self.partition.subgraphs, self.xi, self.lbd_mode,
+            BuildStats(), self.device)
         # re-compact storage (bounding paths changed)
         for si in self.sub_indexes:
             ebp = si.storage
@@ -536,48 +553,124 @@ class DTLP:
         return time.perf_counter() - t0
 
 
-def _build_subgraph_index(graph: Graph, sg: Subgraph, xi: int, lbd_mode: str) -> SubgraphIndex:
+def _bounding_device(device) -> str | None:
+    """The device the bounding stage runs on: None (the host) for None or
+    a CPU device; a card's name where one is asked for, which must be
+    there (nothing falls back to the host)."""
+    if device is None:
+        return None
+    from ..device import resolve_device
+
+    dev = resolve_device(device)
+    return None if dev.type == "cpu" else str(dev)
+
+
+def build_subgraph_indexes(graph: Graph, subgraphs: list, xi: int,
+                           lbd_mode: str, stats: BuildStats,
+                           device: str | None) -> list:
+    """Every subgraph's level-1 index: source by source on the host where
+    ``device`` is None, else as one batched pass on ``device``."""
+    if device is None:
+        out = [_build_subgraph_index(graph, sg, xi, lbd_mode)
+               for sg in subgraphs]
+        stats.host_sources = sum(int(sg.boundary_local.shape[0])
+                                 for sg in subgraphs)
+        stats.simple_walks = sum(
+            sum(p is not None for p in si.path_vertices) for si in out)
+        return out
+    return batched_subgraph_indexes(graph, subgraphs, xi, lbd_mode, stats,
+                                    device)
+
+
+def batched_subgraph_indexes(graph: Graph, subgraphs: list, xi: int,
+                             lbd_mode: str, stats: BuildStats, device,
+                             max_iter: int | None = None) -> list:
+    """:func:`_build_subgraph_index` of every subgraph, bit for bit, with
+    the DP and the walks of all boundary sources batched on ``device``
+    (``core.bounding_batch``; on a CPU device through the kernels' plain
+    versions).  Sources the batch cannot hold take the host path.
+    ``max_iter`` is a test seam: it replaces the DP's cap of nv·ξ+8
+    relaxations, as in :func:`bounding.kdistinct_walk_dp`.  Adds the
+    pass's counts to ``stats``."""
+    from .bounding_batch import source_paths_batched
+
+    blocks = source_paths_batched(graph, subgraphs, xi, device, stats,
+                                  max_iter)
+    out = []
+    for sg, sg_blocks in zip(subgraphs, blocks):
+        vf_hw = graph.vfrag[sg.eid].astype(np.float64)
+        for a_pos, blk in enumerate(sg_blocks):
+            if blk is None:
+                sg_blocks[a_pos] = blk = source_paths(graph, sg, vf_hw, a_pos,
+                                                      xi, max_iter)
+                stats.simple_walks += sum(v is not None for v in blk[3])
+        out.append(finish_subgraph_index(graph, sg, sg_blocks, lbd_mode))
+    return out
+
+
+def _build_subgraph_index(graph: Graph, sg: Subgraph, xi: int, lbd_mode: str,
+                          max_iter: int | None = None) -> SubgraphIndex:
+    """One subgraph's level-1 index, source by source on the host
+    (``max_iter``: the test seam of :func:`batched_subgraph_indexes`)."""
     vf_hw = graph.vfrag[sg.eid].astype(np.float64)
+    blocks = [source_paths(graph, sg, vf_hw, a_pos, xi, max_iter)
+              for a_pos in range(sg.boundary_local.shape[0])]
+    return finish_subgraph_index(graph, sg, blocks, lbd_mode)
+
+
+def source_paths(graph: Graph, sg: Subgraph, vf_hw: np.ndarray, a_pos: int,
+                 xi: int, max_iter: int | None = None) -> tuple:
+    """The pairs and bounding paths of boundary source ``a_pos``, by the
+    host DP and one greedy walk per level: (pairs [(src, dst)], levels per
+    pair, φ per path, vertices per path, edge ids per path), a path's
+    vertices and edge ids None where its level has no simple walk
+    (``max_iter``: the test seam of :func:`batched_subgraph_indexes`)."""
     boundary = sg.boundary_local
-    nb = boundary.shape[0]
-    pair_list = []
-    pair_paths: list = []  # per pair: list of (phi, verts|None, eids|None)
-
-    for a_pos in range(nb):
-        bsrc = int(boundary[a_pos])
-        D = kdistinct_walk_dp(sg.indptr, sg.nbr, vf_hw, bsrc, xi)
-        targets = boundary if graph.directed else boundary[a_pos + 1 :]
-        for bt in targets:
-            bt = int(bt)
-            if bt == bsrc:
-                continue
-            levels = D[:, bt]
-            levels = levels[np.isfinite(levels)]
-            if levels.shape[0] == 0:
-                continue
-            entries = []
-            for lv in levels:
-                verts = extract_level_path(
-                    sg.indptr, sg.nbr, vf_hw, D, bsrc, bt, float(lv)
-                )
-                eids = None
-                if verts is not None:
-                    eids = _path_edge_ids(sg, verts)
-                    if eids is None:
-                        verts = None
-                entries.append((int(round(float(lv))), verts, eids))
-            pair_list.append((bsrc, bt))
-            pair_paths.append(entries)
-
-    n_pairs = len(pair_list)
-    pair_ptr = np.zeros(n_pairs + 1, dtype=np.int64)
-    phis, verts_l, eids_l = [], [], []
-    for i, entries in enumerate(pair_paths):
-        pair_ptr[i + 1] = pair_ptr[i] + len(entries)
-        for phi, verts, eids in entries:
-            phis.append(phi)
+    bsrc = int(boundary[a_pos])
+    D = kdistinct_walk_dp(sg.indptr, sg.nbr, vf_hw, bsrc, xi, max_iter)
+    targets = boundary if graph.directed else boundary[a_pos + 1 :]
+    pairs, counts, phis, verts_l, eids_l = [], [], [], [], []
+    for bt in targets:
+        bt = int(bt)
+        if bt == bsrc:
+            continue
+        levels = D[:, bt]
+        levels = levels[np.isfinite(levels)]
+        if levels.shape[0] == 0:
+            continue
+        for lv in levels:
+            verts = extract_level_path(
+                sg.indptr, sg.nbr, vf_hw, D, bsrc, bt, float(lv)
+            )
+            eids = None
+            if verts is not None:
+                eids = _path_edge_ids(sg, verts)
+                if eids is None:
+                    verts = None
+            phis.append(int(round(float(lv))))
             verts_l.append(verts)
             eids_l.append(eids)
+        pairs.append((bsrc, bt))
+        counts.append(levels.shape[0])
+    return pairs, counts, phis, verts_l, eids_l
+
+
+def finish_subgraph_index(graph: Graph, sg: Subgraph, blocks: list,
+                          lbd_mode: str) -> SubgraphIndex:
+    """Assemble a subgraph's index from its sources' blocks (in boundary
+    order, each as :func:`source_paths` returns it): path distances,
+    bound distances, lower bounds and the EBP-II storage."""
+    pair_list, phis, verts_l, eids_l = [], [], [], []
+    counts = []
+    for pairs, cnt, phi, verts, eids in blocks:
+        pair_list += pairs
+        counts += cnt
+        phis += phi
+        verts_l += verts
+        eids_l += eids
+    n_pairs = len(pair_list)
+    pair_ptr = np.zeros(n_pairs + 1, dtype=np.int64)
+    np.cumsum(np.asarray(counts, dtype=np.int64), out=pair_ptr[1:])
     path_phi = np.array(phis, dtype=np.int64) if phis else np.empty(0, dtype=np.int64)
     path_D = np.full(path_phi.shape[0], INF)
     for p, eids in enumerate(eids_l):

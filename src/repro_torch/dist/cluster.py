@@ -40,6 +40,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.dtlp import DTLP
+from repro_torch.device import resolve_device
 from repro_torch.core.kspdg import PartialKSPCache, ksp_dg, refine_groups
 from repro_torch.engine.registry import EngineSpec, get_engine
 
@@ -63,18 +64,6 @@ _MIN_SCORED_CALLS = 6
 # buckets) self-heals and a recovered straggler rejoins the fleet —
 # manual ``mark_slow`` injection is never probed
 _PROBE_EVERY = 16
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a ``torch.device``; asking for CUDA on a host without
-    a usable card raises instead of falling back to the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {str(device)!r} requested but torch.cuda.is_available() "
-            "is False; pass device='cpu' to serve on the CPU"
-        )
-    return dev
 
 
 class StaleReplicaError(RuntimeError):
@@ -962,7 +951,7 @@ class Cluster:
         z = int(snap["z"]) if z is None else int(z)
         xi = int(snap["xi"]) if xi is None else int(xi)
         g = graph_factory()
-        d = DTLP.build(g, z=z, xi=xi, **build_kw)
+        d = DTLP.build(g, z=z, xi=xi, device=device, **build_kw)
         n_workers = (int(snap["n_workers"]) if n_workers is None
                      else int(n_workers))
         same_shape = (

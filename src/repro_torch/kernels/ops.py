@@ -1,7 +1,8 @@
 """Public wrappers around the Hopper kernels, with launch counters.
 
 On a CUDA tensor a wrapper launches its kernel (``kernels/bf_relax.py``,
-``kernels/ktrop.py``, ``kernels/bound_dist.py``) or raises; on a CPU
+``kernels/ktrop.py``, ``kernels/bound_dist.py``, ``kernels/level_walk.py``)
+or raises; on a CPU
 tensor it runs the kernel's plain PyTorch version (``kernels/ref.py``),
 only because the tensor lies on the CPU.  There is no fallback from one
 to the other.
@@ -16,14 +17,15 @@ cost to every sink in ``COST_SINKS`` and launches and counts nothing.
 The cost is each input read once and each output written once, and the
 reference's min-plus count (``repro/launch/report.py``): 2·S·J·z² per
 BF relaxation, 2·S·k·z² per ktrop relaxation, 2·B·E for ``bound_dist``;
-a fixed point counts its iteration budget.
+a fixed point counts its iteration budget.  ``level_walks`` counts no
+min-plus operation (it subtracts and compares along each walk).
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import bf_relax, bound_dist as _bound_dist, ktrop, ref
+from . import bf_relax, bound_dist as _bound_dist, ktrop, level_walk, ref
 
 INF = ref.INF
 
@@ -31,7 +33,8 @@ INF = ref.INF
 BOUND_DIST_BLOCK = 256
 
 LAUNCHES = {"bf_relax_step": 0, "bf_solve_grouped": 0,
-            "ktrop_relax_step": 0, "ktrop_solve": 0, "bound_dist": 0}
+            "ktrop_relax_step": 0, "ktrop_solve": 0, "bound_dist": 0,
+            "level_walks": 0}
 
 
 #: callables ``sink(kernel, n_bytes, minplus_ops)`` that a shapes-only
@@ -186,6 +189,46 @@ def ktrop_solve(adj, src, k: int, max_iters: int | None = None,
         D, iters, _ = ktrop.solve(adj, src, k, max_iters)
         LAUNCHES["ktrop_solve"] += 1
     return (D, iters) if with_iters else D
+
+
+def level_walks(D, row_sub, row_src, row_max_len, in_ptr, in_src, in_w,
+                in_eid, walk_ptr, walk_dst, walk_level):
+    """The representative walk of each (source, target, level) of a
+    batch of ``ktrop_solve`` rows, ``core.bounding.extract_level_path``'s
+    rule: (verts [W,z] int32, eids [W,z] int32, n [W] int32), with the
+    signature of ``ref.level_walks_ref``.  Walk w of row s runs from
+    row_src[s] to walk_dst[w] with total weight walk_level[w] over the
+    in-edges of subgraph row_sub[s]; verts[w,:n] are its vertices from
+    the source, eids[w,:n-1] the in_eid of its steps, n = 0 where the
+    level has no simple walk of at most row_max_len[s] vertices.  Entries
+    past a walk's end are not specified (the plain version writes -1).
+
+    Levels, weights and remainders must be integers below 2^24 (sums of
+    vfrag counts), so that f32 holds them exactly: the kernel then gives
+    the plain version's walks bit for bit."""
+    if _on_meta(D):  # in: D, row and walk arrays, in-edge table; out
+        S, k, z = D.shape
+        G, H, W = in_ptr.shape[0], in_src.shape[0], walk_dst.shape[0]
+        return _meta_out(
+            "level_walks",
+            4 * (S * k * z + 3 * S + G * (z + 1) + 3 * H + S + 1 + 2 * W)
+            + 4 * (2 * W * z + W), 0.0,
+            ((W, z), torch.int32), ((W, z), torch.int32),
+            ((W,), torch.int32))
+    i32 = [t.to(torch.int32).contiguous() for t in
+           (row_sub, row_src, row_max_len, in_ptr, in_src)]
+    args = (D.float().contiguous(), *i32, in_w.float().contiguous(),
+            in_eid.to(torch.int32).contiguous(),
+            walk_ptr.to(torch.int32).contiguous(),
+            walk_dst.to(torch.int32).contiguous(),
+            walk_level.float().contiguous())
+    if _on_cpu(D):
+        return ref.level_walks_ref(*args)
+    ptr = args[4]
+    h_max = int((ptr[:, -1] - ptr[:, 0]).max()) if ptr.shape[0] else 0
+    out = level_walk.walks(*args, h_max=h_max)
+    LAUNCHES["level_walks"] += 1
+    return out
 
 
 def bound_dist(w_sorted, n_sorted, cum_before, sub, phi):

@@ -3,7 +3,8 @@
 They are the ground truth the kernels are held to on the card, and what
 the wrappers in :mod:`repro_torch.kernels.ops` run on CPU tensors.  The
 min-plus ones (``bf_*``, ``ktrop_*``) use only f32 add, min, compare and
-sort, so the kernels must match them bit for bit.  ``bound_dist_ref``
+sort, so the kernels must match them bit for bit.  ``level_walks_ref`` only subtracts and compares integer-valued
+f32, so the walk kernel must match it bit for bit too.  ``bound_dist_ref``
 sums floats in torch's order, so the kernel is held to it by a tolerance
 and to ``bound_dist_seq_ref``, the same sum in the kernel's order, bit
 for bit; ``group_by_subgraph`` is the kernel's grouping of the queries.
@@ -91,6 +92,85 @@ def ktrop_solve_ref(adj, src, k: int, max_iters: int | None = None):
     from ..engine.dense import ktrop_solve_iters
 
     return ktrop_solve_iters(adj, src, k, max_iters)
+
+
+def level_walks_ref(D, row_sub, row_src, row_max_len, in_ptr, in_src, in_w,
+                    in_eid, walk_ptr, walk_dst, walk_level):
+    """Every walk of ``core.bounding.extract_level_path`` for a batch, in
+    lockstep: (verts [W,z] int32, eids [W,z] int32, n [W] int32).
+
+    Walk w belongs to row s (``walk_ptr`` [S+1]: row s owns walks
+    walk_ptr[s] to walk_ptr[s+1]); it runs from row_src[s] to walk_dst[w]
+    over the in-edges of subgraph row_sub[s] (``in_ptr`` [G,z+1]: the
+    in-edges of v are entries in_ptr[g,v] to in_ptr[g,v+1] of in_src,
+    in_w, in_eid, ascending half-edge order) with total weight
+    walk_level[w], found backwards from the target: of v's in-edges u->v
+    whose remainder rem = need - w is >= 0 and one of u's levels D[s,:,u],
+    the smallest rem wins, the first of equals a tie.  No such step, a
+    step onto a seen vertex, or more than row_max_len[s] vertices gives
+    n = 0.  Otherwise verts[w,:n] is the walk from the source and
+    eids[w,:n-1] the in_eid of its steps; entries past them are -1."""
+    S, k, z = D.shape
+    W = walk_dst.shape[0]
+    dev = D.device
+    lw = torch.arange(W, device=dev)
+    row = torch.repeat_interleave(torch.arange(S, device=dev),
+                                  walk_ptr.long().diff(), output_size=W)
+    g, src = row_sub.long()[row], row_src.long()[row]
+    max_len = row_max_len.long()[row]
+    ptr = in_ptr.long()
+    deg = ptr[:, 1:] - ptr[:, :-1]  # [G,z]
+    slot = torch.arange(max(int(deg.max()) if deg.numel() else 0, 1),
+                        device=dev)
+    if in_src.shape[0] == 0:  # one entry that no step can take
+        in_src, in_eid = (torch.zeros(1, dtype=t.dtype, device=dev)
+                          for t in (in_src, in_eid))
+        in_w = torch.zeros(1, dtype=in_w.dtype, device=dev)
+    H = in_src.shape[0]
+    v, need = walk_dst.long(), walk_level.clone()
+    verts = torch.full((W, z), -1, dtype=torch.int64, device=dev)
+    eids = torch.full((W, z), -1, dtype=torch.int64, device=dev)
+    seen = torch.zeros((W, z), dtype=torch.bool, device=dev)
+    verts[lw, 0] = v
+    seen[lw, v] = True
+    n = torch.ones(W, dtype=torch.int64, device=dev)
+    walking = torch.ones(W, dtype=torch.bool, device=dev)
+    simple = torch.ones(W, dtype=torch.bool, device=dev)
+    while True:
+        walking &= (v != src) | (need > 0)
+        if not bool(walking.any()):
+            break
+        p = ptr[g, v][:, None] + slot  # [W,slots]
+        has = slot < deg[g, v][:, None]
+        p = torch.where(has, p, 0).clamp(max=H - 1)
+        u = in_src.long()[p]
+        rem = need[:, None] - in_w[p]
+        levels = D[row[:, None], :, u]  # [W,slots,k]
+        step = has & (rem >= 0) & (levels == rem[..., None]).any(-1)
+        best = torch.where(step, rem, torch.inf).argmin(dim=1, keepdim=True)
+        bu = u.gather(1, best)[:, 0]
+        fail = walking & (~step.any(dim=1) | seen[lw, bu])
+        simple &= ~fail
+        walking &= ~fail
+        at = lw[walking]
+        bu, pos = bu[walking], n[walking]
+        verts[at, pos] = bu
+        eids[at, pos - 1] = in_eid.long()[p.gather(1, best)[walking, 0]]
+        seen[at, bu] = True
+        n[walking] += 1
+        need = torch.where(walking, rem.gather(1, best)[:, 0], need)
+        v = torch.where(walking, u.gather(1, best)[:, 0], v)
+        over = walking & (n > max_len)
+        simple &= ~over
+        walking &= ~over
+    n = torch.where(simple, n, 0)
+    # reverse each walk in place: source first
+    j = torch.arange(z, device=dev)
+    back_v = (n[:, None] - 1 - j).clamp(min=0)
+    back_e = (n[:, None] - 2 - j).clamp(min=0)
+    verts = torch.where(j < n[:, None], verts.gather(1, back_v), -1)
+    eids = torch.where(j < n[:, None] - 1, eids.gather(1, back_e), -1)
+    return verts.to(torch.int32), eids.to(torch.int32), n.to(torch.int32)
 
 
 def bound_dist_ref(w_sorted, n_sorted, cum_before, sub, phi):

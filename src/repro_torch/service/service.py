@@ -221,9 +221,11 @@ class KSPService:
     @classmethod
     def build(cls, graph, config: ServiceConfig | None = None,
               **dtlp_kw) -> "KSPService":
-        """Build the DTLP index (``config.z``/``config.xi``) and serve it."""
+        """Build the DTLP index (``config.z``/``config.xi``) on the device
+        it serves on (``config.device``) and serve it."""
         cfg = config if config is not None else ServiceConfig()
-        d = DTLP.build(graph, z=cfg.z, xi=cfg.xi, **dtlp_kw)
+        d = DTLP.build(graph, z=cfg.z, xi=cfg.xi, device=cfg.device,
+                       **dtlp_kw)
         return cls(d, cfg)
 
     @classmethod

@@ -151,4 +151,4 @@ class TestCudaLaunchers:
         ops.bf_solve_grouped(adj, dist, spur, spur, ban, cap)
         assert ops.LAUNCHES == {"bf_relax_step": 0, "bf_solve_grouped": 0,
                                 "ktrop_relax_step": 0, "ktrop_solve": 0,
-                                "bound_dist": 0}
+                                "bound_dist": 0, "level_walks": 0}

@@ -18,6 +18,7 @@ from repro_torch.kernels import ops
 
 S, J, K, Z = 3, 5, 4, 37  # ragged: z % 4 != 0
 B, E = 300, 29
+W = 7  # level walks
 
 
 def _inputs(seed=0):
@@ -40,6 +41,19 @@ def _inputs(seed=0):
         w=w, n=n, cb=cb, sub=sub, phi=phi).items()}
     t["src"] = torch.zeros(S, dtype=torch.int32)
     t["D"] = ops.ktrop_solve(t["adj"], t["src"], K, max_iters=3)
+    # one subgraph's in-edges (adj[0]'s finite entries) and W walks
+    u, v = np.nonzero((adj[0] < ops.INF) & ~np.eye(Z, dtype=bool))
+    order = np.lexsort((u, v))
+    u, v = u[order], v[order]
+    t.update({k: torch.from_numpy(np.ascontiguousarray(a)) for k, a in dict(
+        lw_sub=np.zeros(S, np.int32), lw_max_len=np.full(S, Z, np.int32),
+        lw_ptr=np.concatenate([[0], np.cumsum(np.bincount(v, minlength=Z))]
+                              ).astype(np.int32)[None],
+        lw_src=u.astype(np.int32), lw_w=adj[0][u, v],
+        lw_eid=np.arange(u.shape[0], dtype=np.int32),
+        lw_walk_ptr=np.array([0, 3, 5, W], np.int32),
+        lw_dst=rng.integers(1, Z, W).astype(np.int32),
+        lw_level=rng.integers(1, 30, W).astype(np.float32)).items()})
     return t
 
 
@@ -50,6 +64,7 @@ def _meta(x):
 def _calls(t):
     """(kernel, call on a dict of inputs, bytes, min-plus operations)."""
     n_sjz, n_adj, n_skz = S * J * Z, S * Z * Z, S * K * Z
+    n_in = t["lw_src"].shape[0]
     return [
         ("bf_relax_step",
          lambda a: ops.bf_relax_step(a["dist"], a["adj"], a["so"], a["bn"],
@@ -81,6 +96,13 @@ def _calls(t):
          lambda a: ops.bound_dist(a["w"], a["n"], a["cb"], a["sub"],
                                   a["phi"]),
          4 * (3 * S * E + 3 * B), 2.0 * B * E),
+        ("level_walks",
+         lambda a: ops.level_walks(a["D"], a["lw_sub"], a["src"],
+                                   a["lw_max_len"], a["lw_ptr"], a["lw_src"],
+                                   a["lw_w"], a["lw_eid"], a["lw_walk_ptr"],
+                                   a["lw_dst"], a["lw_level"]),
+         4 * (n_skz + 3 * S + (Z + 1) + 3 * n_in + S + 1 + 2 * W)
+         + 4 * (2 * W * Z + W), 0.0),
     ]
 
 
@@ -88,7 +110,7 @@ def _flat(x):
     return list(x) if isinstance(x, tuple) else [x]
 
 
-@pytest.mark.parametrize("i", range(7))
+@pytest.mark.parametrize("i", range(8))
 def test_meta_outputs_and_cost(i):
     t = _inputs()
     name, call, n_bytes, n_ops = _calls(t)[i]
