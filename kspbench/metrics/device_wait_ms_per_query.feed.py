@@ -1,0 +1,11 @@
+"""The feed cell's reading of ``device_wait_ms_per_query.open``: host
+milliseconds per answered query in ``collect_round`` spans.  The twin's
+reader serves here unchanged; the entry of this name lists only the feed
+cell."""
+
+from kspbench import cell
+
+_TWIN = cell.load_module(
+    cell.ROOT / "metrics" / "device_wait_ms_per_query.open.py")
+UNIT = _TWIN.UNIT
+read = _TWIN.read

@@ -8,6 +8,13 @@ incrementally through EBP-II / G-MPTree) and bound distances BD
 Level 2: the skeleton graph G_λ over all boundary vertices, edge weight
 = minimum lower bound distance (MBD) across the subgraphs containing
 the pair.  G_λ is small and replicated in the distributed runtime.
+
+The index keeps the paper's lower bounds (``lbd_mode``) in every
+subgraph whose unit weights are all 1, as a build on integer weights
+leaves them.  A subgraph with another unit weight, from a build on other
+weights or after an update batch moved its weights, has each of its
+bounds capped at the pair's exact distance (``core.bound_refresh``):
+Theorem 1's bound is kept where it is sound and lowered where it leaks.
 """
 
 from __future__ import annotations
@@ -17,6 +24,9 @@ import time
 
 import numpy as np
 
+from repro_torch import obs
+
+from .bound_refresh import PairDistances
 from .bounding import (
     INF,
     bound_distances,
@@ -49,15 +59,18 @@ class SubgraphIndex:
     profile: object  # UnitWeightProfile
     lbd: np.ndarray  # float64[n_pairs]
 
-    def rebuild_bounds(self, graph: Graph, mode: str) -> None:
-        """Refresh BDs (all paths) and per-pair LBDs after weight change."""
+    def rebuild_bounds(self, graph: Graph, mode: str,
+                       exact: np.ndarray) -> int:
+        """Refresh BDs (all paths) and per-pair LBDs after weight change,
+        each LBD capped at the pair's ``exact`` distance; returns the
+        pairs the cap lowered."""
         self.profile = unit_weight_profile(
             graph.w[self.sg.edges], graph.vfrag[self.sg.edges]
         )
         self.path_BD = bound_distances(self.profile, self.path_phi)
-        self.lbd = lower_bound_distances_vec(
-            self.pair_ptr, self.path_D, self.path_BD, mode=mode
-        )
+        self.lbd, capped = capped_bounds(lower_bound_distances_vec(
+            self.pair_ptr, self.path_D, self.path_BD, mode=mode), exact)
+        return capped
 
     def update_actual_distances(self, eids: np.ndarray, delta: np.ndarray) -> None:
         """D[p] += Δw for every path containing an updated edge (EBP-II)."""
@@ -252,6 +265,28 @@ class UpdatePlan:
 
 
 @dataclasses.dataclass
+class UpdateStats:
+    """Counters of the index's maintenance, summed over update batches:
+    ``touched_subgraphs`` whose weights a batch moved, ``refreshed_pairs``
+    whose exact distance was recomputed (``core.bound_refresh``) and the
+    ``relaxations`` and seconds (``refresh_s``) that took,
+    ``capped_pairs`` whose Theorem 1 bound passed the exact distance and
+    was lowered to it; reference trees the commits carried over
+    (``trees_kept``) or dropped (``trees_evicted``).  A build or a
+    rebaseline on weights that are not integers counts the subgraphs it
+    capped there too."""
+
+    batches: int = 0
+    touched_subgraphs: int = 0
+    refreshed_pairs: int = 0
+    capped_pairs: int = 0
+    relaxations: int = 0
+    refresh_s: float = 0.0
+    trees_kept: int = 0
+    trees_evicted: int = 0
+
+
+@dataclasses.dataclass
 class BuildStats:
     """Timings and sizes of one build.  ``device_sources``: boundary
     sources whose level DP ran in the batched pass on the index's device;
@@ -305,6 +340,8 @@ class DTLP:
         self.xi = xi
         self.lbd_mode = lbd_mode
         self.stats = stats
+        self.update_stats = UpdateStats()
+        self._pair_dist: PairDistances | None = None  # built on first use
         # lazy reference-stream state: per-target SidetrackTrees over the
         # base skeleton (see ref_tree_cache below)
         self._ref_trees = None
@@ -367,8 +404,11 @@ class DTLP:
         stats.skeleton_s = time.perf_counter() - t0
         stats.n_paths = sum(si.path_phi.shape[0] for si in sub_indexes)
         stats.n_pairs = sum(si.pairs.shape[0] for si in sub_indexes)
-        return cls(graph, part, sub_indexes, skeleton, edge_owner, xi,
+        dtlp = cls(graph, part, sub_indexes, skeleton, edge_owner, xi,
                    lbd_mode, stats, z=int(z), device=device)
+        if dtlp._cap_unsound_bounds():
+            skeleton.refresh_weights(sub_indexes)
+        return dtlp
 
     # ------------------------------------------------------- maintenance
     def apply_updates(self, eids: np.ndarray, new_w: np.ndarray, *,
@@ -395,11 +435,14 @@ class DTLP:
         self.graph.apply_updates(eids, new_w)
         owners = self.edge_owner[eids]
         touched = np.unique(owners[owners >= 0])
+        self.update_stats.batches += 1
+        exact = self._refresh_bounds(self.graph.w, touched)
         for gid in touched:
             si = self.sub_indexes[gid]
             mask = owners == gid
             si.update_actual_distances(eids[mask], delta[mask])
-            si.rebuild_bounds(self.graph, self.lbd_mode)
+            self.update_stats.capped_pairs += si.rebuild_bounds(
+                self.graph, self.lbd_mode, exact[gid])
         if touched.shape[0]:
             self.skeleton.refresh_weights(self.sub_indexes)
         return time.perf_counter() - t0
@@ -410,11 +453,13 @@ class DTLP:
 
         Runs the same float operations, in the same order, as the
         wholesale path — per-path D deltas (EBP-II/G-MPTree lookups),
-        per-touched-subgraph profile/BD/LBD recompute from the future
+        per-touched-subgraph profile/BD recompute from the future
         weight buffer — but into shadow arrays, so epoch-*e* queries
         keep executing against untouched state while epoch *e+1* is
         prepared.  The batch is deduped last-write-wins first (a
-        repeated eid must not double-count its delta).
+        repeated eid must not double-count its delta).  Each touched
+        subgraph's lower bounds are capped at its pairs' exact distances
+        under the future weights (``core.bound_refresh``).
         """
         t0 = time.perf_counter()
         eids, new_w = dedupe_updates(eids, new_w)
@@ -424,6 +469,8 @@ class DTLP:
         w_next[eids] = new_w
         owners = self.edge_owner[eids]
         touched = np.unique(owners[owners >= 0])
+        self.update_stats.batches += 1
+        exact = self._refresh_bounds(w_next, touched)
         sub_updates = []
         new_lbds: dict = {}
         for gid in touched:
@@ -438,20 +485,24 @@ class DTLP:
                 w_next[si.sg.edges], g.vfrag[si.sg.edges]
             )
             BD = bound_distances(profile, si.path_phi)
-            lbd = lower_bound_distances_vec(
-                si.pair_ptr, D, BD, mode=self.lbd_mode
-            )
+            lbd, capped = capped_bounds(lower_bound_distances_vec(
+                si.pair_ptr, D, BD, mode=self.lbd_mode), exact[gid])
+            self.update_stats.capped_pairs += capped
             sub_updates.append((int(gid), D, BD, profile, lbd))
             new_lbds[int(gid)] = lbd
         affected, skel_new_w, changes, t_idx, t_vals = (
             self.skeleton.plan_partial_refresh(new_lbds)
         )
+        prepare_s = time.perf_counter() - t0
+        obs.span_at("dtlp_prepare", t0, prepare_s, edges=int(eids.shape[0]),
+                    subgraphs=int(touched.shape[0]),
+                    skeleton_changes=len(changes))
         return UpdatePlan(
             eids=eids, new_w=new_w, w_next=w_next,
             sub_updates=sub_updates, skel_affected=affected,
             skel_new_w=skel_new_w, skel_changes=changes,
             skel_touched_idx=t_idx, skel_touched_vals=t_vals,
-            prepare_s=time.perf_counter() - t0,
+            prepare_s=prepare_s,
         )
 
     def commit_updates(self, plan: UpdatePlan) -> None:
@@ -478,13 +529,63 @@ class DTLP:
                 plan.skel_touched_idx, plan.skel_touched_vals,
             )
             if self._ref_trees is not None and len(self._ref_trees):
-                self._ref_trees.repair(plan.skel_changes,
-                                       self.skeleton.view())
+                tracing = obs.enabled()
+                t0 = obs.clock() if tracing else 0.0
+                kept, evicted = self._ref_trees.repair(
+                    plan.skel_changes, self.skeleton.view())
+                if tracing:
+                    obs.span_at("tree_repair", t0, obs.clock() - t0,
+                                kept=kept, evicted=evicted)
+                self.update_stats.trees_kept += kept
+                self.update_stats.trees_evicted += evicted
             # re-key: the repaired cache IS valid for the new skeleton
             # state (wholesale refreshes leave the key stale on purpose,
             # so ref_tree_cache drops the cache there)
             self._ref_trees_key = (id(self.skeleton),
                                    self.skeleton._version)
+
+    def _refresh_bounds(self, w: np.ndarray, touched: np.ndarray) -> dict:
+        """{gid: exact distances of the subgraph's pairs under ``w``} for
+        each touched gid (none computed when nothing is touched), counted
+        in ``update_stats``."""
+        st = self.update_stats
+        if not touched.shape[0]:
+            return {}
+        if self._pair_dist is None:
+            self._pair_dist = PairDistances(self.sub_indexes, self.device)
+        pd = self._pair_dist
+        t0 = obs.clock()
+        flat = pd(w)
+        dt = obs.clock() - t0
+        obs.span_at("bound_refresh", t0, dt, subgraphs=int(touched.shape[0]),
+                    relaxations=pd.relaxations)
+        out = {int(g): flat[pd.ptr[g]:pd.ptr[g + 1]] for g in touched}
+        st.touched_subgraphs += int(touched.shape[0])
+        st.refreshed_pairs += sum(int(v.shape[0]) for v in out.values())
+        st.relaxations += pd.relaxations
+        st.refresh_s += dt
+        return out
+
+    def _cap_unsound_bounds(self) -> int:
+        """Cap at its pairs' exact distances the bounds of every subgraph
+        that has an edge of unit weight other than 1 (w ≠ vfrag), where
+        Theorem 1's bound can leak; returns how many subgraphs that was.
+        A graph of integer weights has none, and keeps the paper's
+        bounds."""
+        g = self.graph
+        owners = self.edge_owner[np.flatnonzero(g.w != g.vfrag)]
+        touched = np.unique(owners[owners >= 0])
+        exact = self._refresh_bounds(g.w, touched)
+        for gid in touched:
+            si = self.sub_indexes[gid]
+            si.lbd, capped = capped_bounds(si.lbd, exact[int(gid)])
+            self.update_stats.capped_pairs += capped
+        return int(touched.shape[0])
+
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        state["_pair_dist"] = None  # device tensors: rebuilt on first use
+        return state
 
     # ----------------------------------------------------------- helpers
     @property
@@ -531,7 +632,9 @@ class DTLP:
         Lazy reference streams recover by rebuilding their per-target
         SPT + sidetrack heap against the fresh skeleton (one Dijkstra +
         O(m log n) heap inserts, NOT a re-run of Yen rounds): the
-        ``ref_tree_cache`` is dropped here and repopulates on demand."""
+        ``ref_tree_cache`` is dropped here and repopulates on demand.
+        The re-anchored weights are no longer integers, so the bounds are
+        capped as in a build (``_cap_unsound_bounds``)."""
         t0 = time.perf_counter()
         self._ref_trees = None
         self._ref_trees_key = None
@@ -541,6 +644,8 @@ class DTLP:
         self.sub_indexes = build_subgraph_indexes(
             g, self.partition.subgraphs, self.xi, self.lbd_mode,
             BuildStats(), self.device)
+        self._pair_dist = None
+        self._cap_unsound_bounds()
         # re-compact storage (bounding paths changed)
         for si in self.sub_indexes:
             ebp = si.storage
@@ -551,6 +656,12 @@ class DTLP:
         self.skeleton.finalize(self.sub_indexes)
         self.skeleton.refresh_weights(self.sub_indexes)
         return time.perf_counter() - t0
+
+
+def capped_bounds(lbd: np.ndarray, exact: np.ndarray) -> tuple:
+    """Theorem 1's bounds capped at the pairs' exact distances, and how
+    many the cap lowered (the pairs where Theorem 1 leaked)."""
+    return np.minimum(lbd, exact), int(np.count_nonzero(exact < lbd))
 
 
 def _bounding_device(device) -> str | None:
