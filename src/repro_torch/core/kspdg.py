@@ -26,7 +26,7 @@ from repro_torch import obs
 
 from .dtlp import DTLP
 from .refstream import TIE_EPS, get_ref_stream
-from .sssp import CSRView, dijkstra, subgraph_view
+from .sssp import ROUTE_CALLS, CSRView, dijkstra, subgraph_view
 from .variants import VariantPolicy
 from .yen import ksp
 
@@ -304,8 +304,8 @@ def _k_best_joins(segments: list[list[tuple[float, tuple]]], k: int,
 def _timed(name: str, fn, *args, **attrs):
     """``fn(*args)``, recorded as the span ``name`` when tracing is on.
 
-    The stepper's spans (``skeleton``, ``ref_build``, ``ref_next``,
-    ``cohort``, ``stop_scan``) go through here: with tracing off a call
+    The stepper's spans (``skeleton``, ``ref_next``, ``cohort``,
+    ``stop_scan``) go through here: with tracing off a call
     pays one flag test and reads no clock, since no stats counter wants
     these durations."""
     if not obs.enabled():
@@ -314,6 +314,23 @@ def _timed(name: str, fn, *args, **attrs):
     out = fn(*args)
     obs.span_at(name, t0, obs.clock() - t0, **attrs)
     return out
+
+
+def _ref_build(spec, view, es, et, directed, tree_cache, s, t):
+    """The reference stream, recorded as the span ``ref_build`` when
+    tracing is on, with the attribute ``route``: how the plain searches
+    of its construction ran (``native``, ``python`` or both as
+    ``mixed``; ``none`` where it ran none, as for a cached tree)."""
+    if not obs.enabled():
+        return spec.factory(view, es, et, directed, tree_cache=tree_cache)
+    before = dict(ROUTE_CALLS)
+    t0 = obs.clock()
+    refs = spec.factory(view, es, et, directed, tree_cache=tree_cache)
+    dur = obs.clock() - t0
+    ran = [r for r in ("native", "python") if ROUTE_CALLS[r] > before[r]]
+    route = ran[0] if len(ran) == 1 else ("mixed" if ran else "none")
+    obs.span_at("ref_build", t0, dur, s=s, t=t, route=route)
+    return refs
 
 
 def _cohort_pairs(cohort, global_of_ext, stats: QueryStats):
@@ -444,9 +461,7 @@ def ksp_dg_stepper(
     # per-target sidetrack trees are reusable across queries only on the
     # un-spliced base skeleton (no home ⇒ no per-query extra vertices)
     tree_cache = dtlp.ref_tree_cache() if not home else None
-    refs = _timed("ref_build",
-                  lambda: spec.factory(view, es, et, dtlp.graph.directed,
-                                       tree_cache=tree_cache), s=s, t=t)
+    refs = _ref_build(spec, view, es, et, directed, tree_cache, s, t)
 
     L: list[tuple[float, tuple]] = []
     L_set = set()

@@ -7,16 +7,31 @@ need (banned vertices / banned directed edges), PYen's reuse
 FindKSP's A* heuristic.  The TPU data plane replaces this routine with
 batched dense Bellman–Ford (see ``repro/engine``); this is the exact
 reference.
+
+A call in its plain form (no destination, bans, cap, heuristic or reuse:
+the reverse shortest-path trees and the splice searches) runs a native
+copy of the loop, ``csrc/sssp_host.cpp``, where its library builds on
+this host; it returns the loop's ``dist`` and ``parent`` bit for bit.
+Every other call, and every call on a host without the library, runs the
+Python loop.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 import heapq
+import threading
 
 import numpy as np
 
 INF = float("inf")
+
+#: plain-form ``dijkstra`` calls by route: "native" (``csrc/sssp_host.cpp``)
+#: or "python" (the loop, where the library is missing or refuses the view)
+ROUTE_CALLS = {"native": 0, "python": 0}
+_ROUTE_LOCK = threading.Lock()
 
 
 @dataclasses.dataclass
@@ -73,6 +88,13 @@ def dijkstra(
     the search, parents along the cached suffix are patched so path
     reconstruction works.
     """
+    if (dst is None and banned_vertices is None and banned_edges is None
+            and cap == INF and heuristic is None and reuse is None):
+        native = _native_dijkstra(view, src)
+        with _ROUTE_LOCK:
+            ROUTE_CALLS["python" if native is None else "native"] += 1
+        if native is not None:
+            return native[0], native[1], INF
     n = view.n
     dist = np.full(n, INF)
     parent = np.full(n, -1, dtype=np.int64)
@@ -139,6 +161,59 @@ def dijkstra(
             u = v
         best = dist[dst]
     return dist, parent, best
+
+
+@functools.cache
+def _native_fn():
+    """``sssp_dijkstra`` of ``csrc/sssp_host.cpp``, built at first use;
+    None where the host cannot build or load it."""
+    from ..kernels import _build
+
+    lib = _build.host_library("sssp_host")
+    if lib is None:
+        return None
+    fn = lib.sssp_dijkstra
+    i64, f64 = ctypes.c_int64, ctypes.c_double
+    fn.argtypes = [i64, i64, ctypes.POINTER(i64), ctypes.POINTER(i64),
+                   ctypes.POINTER(f64), i64, ctypes.POINTER(f64),
+                   ctypes.POINTER(i64)]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _as_array(a, dtype, kinds: str):
+    """``a`` as a contiguous 1-D ``dtype`` array (no copy where it is one
+    already), or None unless its dtype is of ``kinds``: integers and
+    floats widen exactly to int64 and float64."""
+    a = np.asarray(a)
+    if a.ndim != 1 or a.dtype.kind not in kinds:
+        return None
+    return np.ascontiguousarray(a, dtype=dtype)
+
+
+def _native_dijkstra(view: CSRView, src):
+    """The plain form's (dist, parent) from the native loop, or None where
+    the library is missing or the view is not one it takes (the Python
+    loop then runs, and raises where it would have raised)."""
+    fn = _native_fn()
+    if fn is None or not isinstance(src, (int, np.integer)):
+        return None
+    n, src = int(view.n), int(src)
+    indptr = _as_array(view.indptr, np.int64, "iu")
+    nbr = _as_array(view.nbr, np.int64, "iu")
+    hw = _as_array(view.hw, np.float64, "iuf")
+    if (indptr is None or nbr is None or hw is None
+            or indptr.shape[0] != n + 1 or hw.shape != nbr.shape
+            or not 0 <= src < n):
+        return None
+    dist = np.empty(n, dtype=np.float64)
+    parent = np.empty(n, dtype=np.int64)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    f64p = ctypes.POINTER(ctypes.c_double)
+    err = fn(n, nbr.shape[0], indptr.ctypes.data_as(i64p),
+             nbr.ctypes.data_as(i64p), hw.ctypes.data_as(f64p), src,
+             dist.ctypes.data_as(f64p), parent.ctypes.data_as(i64p))
+    return None if err else (dist, parent)
 
 
 def extract_path(parent: np.ndarray, src: int, dst: int) -> list[int] | None:

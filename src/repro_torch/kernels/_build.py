@@ -7,7 +7,10 @@ file name carries a hash of its source, the shared headers
 (``csrc/*.cuh``) and the flags, so a changed source or header is never
 served a stale build.  Builds go to ``repro_torch/build/`` (listed
 in ``.gitignore``); :func:`build_all` starts one ``nvcc`` per source, all
-at once.
+at once.  A host source, ``csrc/<name>.cpp``, is compiled the same way by
+the host C++ compiler (the one ``nvcc`` drives) into a library that
+:func:`host_library` loads, or reports missing where no compiler is
+found or the build fails: its callers then keep their Python route.
 
 It also holds what every launcher checks: :func:`check_tensor` before
 a launch and :func:`check_launch` after it.  Nothing here runs at
@@ -22,6 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -57,6 +61,10 @@ NVCC_FLAGS = (
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+#: flags of a host library: no fast-math, so every float64 sum and
+#: comparison is the one the Python code it stands in for makes
+HOST_CXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
+
 #: per source: {"seconds": build time, "log": nvcc's output (ptxas -v:
 #: registers, shared memory, spills)}; filled by the builds of this process
 BUILD_INFO: dict = {}
@@ -71,6 +79,10 @@ def _nvcc() -> str:
         return str(fallback)
     raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
                        "host with the CUDA toolkit")
+
+
+def _host_cxx() -> str | None:
+    return shutil.which("g++") or shutil.which("c++")
 
 
 def _target(name: str) -> Path:
@@ -213,6 +225,46 @@ def library(name: str) -> ctypes.CDLL:
     if not path.exists():
         path = build_all()[name]
     return ctypes.CDLL(str(path))
+
+
+@functools.cache
+def host_library(name: str) -> ctypes.CDLL | None:
+    """The loaded library of the host source ``csrc/<name>.cpp``, built at
+    first use; None where no host C++ compiler is found or the build or
+    the load fails (the reason is kept in ``BUILD_INFO[name]``).  Several
+    processes or threads may build at once: each writes its own temporary
+    file and renames it onto the hashed name."""
+    cxx = _host_cxx()
+    if cxx is None:
+        BUILD_INFO[name] = {"seconds": 0.0, "log": "no host C++ compiler"}
+        return None
+    source = CSRC / f"{name}.cpp"
+    digest = hashlib.sha256(source.read_bytes())
+    digest.update(" ".join((cxx, *HOST_CXX_FLAGS)).encode())
+    out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    if not out.exists():
+        t0 = time.perf_counter()
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        try:
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            proc = subprocess.run(
+                [cxx, *HOST_CXX_FLAGS, "-o", str(tmp), str(source)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            BUILD_INFO[name] = {"seconds": time.perf_counter() - t0,
+                                "log": proc.stdout}
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                return None
+            os.replace(tmp, out)
+        except OSError as e:
+            BUILD_INFO[name] = {"seconds": time.perf_counter() - t0,
+                                "log": f"build failed: {e}"}
+            return None
+    try:
+        return ctypes.CDLL(str(out))
+    except OSError as e:
+        BUILD_INFO[name] = {"seconds": 0.0, "log": f"load failed: {e}"}
+        return None
 
 
 def check_tensor(name, t, dtype, shape, device) -> None:
