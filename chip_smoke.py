@@ -28,7 +28,8 @@ phase that does not hold:
    both kernels against their plain versions on every row, bitwise, and
    timed with CUDA events beside their bounds, every block on its list;
    the refine_dense cell's step (capped at 64 iterations) gives the same
-   bytes; then the fused solve at the serving slab shape (S=64, z=96,
+   bytes, and the epilogue (``max_iters=0``) returns the converged field
+   and its parents unchanged; then the fused solve at the serving slab shape (S=64, z=96,
    J in {8, 32}), bitwise and timed, and there also ``bf_relax_step``
    and the parent epilogue (``max_iters=0``) bitwise against their plain
    versions;
@@ -46,14 +47,11 @@ phase that does not hold:
    index);
    then the multi-device path: ``shard_refine.make_refine_fn`` with
    ``CudaBackend`` at the refine_dense shape on a 1-shard mesh of the
-   card and on 2 logical shards of it, bitwise the fused solve, with
-   its global iterations, launches and wall time beside the fused
-   solve's, and the epilogue (``max_iters=0``) returning a converged
-   field unchanged; the same trace served on ``cuda_bf`` over a 1-shard
-   mesh, barrier and streaming, equal to the non-mesh answers, with
-   ``bf_relax_step`` launched and (streaming) each launch bitwise equal
-   to the plain step on its inputs and its per-block path report as the
-   data dictates; and the driver
+   card and on 2 logical shards of it, bitwise the fused solve, one
+   ``bf_solve_grouped`` launch per shard and no ``bf_relax_step``, its
+   wall time beside the fused solve's; the same trace served on
+   ``cuda_bf`` over a 1-shard mesh, barrier and streaming, equal to the
+   non-mesh answers, launching ``bf_solve_grouped`` only; and the driver
    ``python -m repro_torch.launch.serve --engine cuda_bf --mesh`` (a
    10x10 grid, a worker killed and revived) ending in "serving run
    complete" with no EMPTY line;
@@ -704,6 +702,9 @@ def phase_refine_dense(torch, dev, cell):
     # the fixed cost: tile loads, the one read of the row, the epilogue
     fixed_ms = cuda_ms(torch, lambda: bf_relax.solve_grouped(
         adj, init, bv, so, bn, cap, max_iters=0), repeats=5)
+    d0, p0 = ops.bf_solve_grouped(adj, dist, bv, so, bn, cap, max_iters=0)
+    check(torch.equal(d0, dist) and torch.equal(p0, parent),
+          "max_iters=0 changed a converged field or its parents")
     solve_bound, solve_by = bound_ms(
         adj_bytes + n * 4 * 3 + n * 3 + S * J * 4,
         bf_solve_ops(torch, adj, iters, J, jt))
@@ -715,9 +716,10 @@ def phase_refine_dense(torch, dev, cell):
         f"in-edge list on {int(used.sum())} of {used.numel()} blocks "
         f"({smem} B of shared memory per block, "
         f"{bf_relax.solve_blocks_per_sm(J, z)} blocks per SM); with "
-        f"max_iters=0 (loads, list build, epilogue) {fixed_ms:.3f} ms; "
-        f"dist, parents and iterations per row bitwise equal to plain on "
-        f"all {S} rows, and to the refine_dense cell's step")
+        f"max_iters=0 (loads, list build, epilogue) {fixed_ms:.3f} ms, "
+        f"the converged field and its parents unchanged by it; dist, "
+        f"parents and iterations per row bitwise equal to plain on all "
+        f"{S} rows, and to the refine_dense cell's step")
     return {
         "bf_relax_step": dict(ms=step_ms, plain_ms=step_plain_ms,
                               bound_ms=step_bound, bound_by=step_by,
@@ -735,9 +737,9 @@ def phase_serving_shape(torch, dev):
     """``bf_solve_grouped`` at the serving slab shape (S=64 rows, z=96) on
     road-like rows, J in {8, 32}: bitwise against the plain version and
     timed (median of 21 CUDA-event timings of one launch).  At the same
-    shapes, the two other calls mesh serving makes: ``bf_relax_step``
-    (bitwise against the plain step, on its list path) and the parent
-    epilogue ``bf_solve_grouped(..., max_iters=0)`` (bitwise against its
+    shapes, ``bf_relax_step`` (bitwise against the plain step, on its
+    list path) and the parent epilogue
+    ``bf_solve_grouped(..., max_iters=0)`` (bitwise against its
     plain version on a field 3 relaxations in and on the converged field,
     where it returns that field and its parents unchanged)."""
     from repro_torch.kernels import bf_relax, ops, ref
@@ -915,11 +917,11 @@ def serving_trace(np):
     return g0, queries, batch
 
 
-def serve(torch, np, engine, queries, batch, mesh=None,
+def serve(torch, engine, queries, batch, mesh=None,
           update_mode="barrier", label=None):
     """Serve 32 queries, the update, 32 queries; the launch counts are
     set to 0 just before and read just after.  Returns (service,
-    [(paths, epoch)], launches, stats)."""
+    [(paths, epoch)], launches)."""
     from repro_torch.kernels import ops
     from repro_torch.service import QueryRequest, UpdateBatch
 
@@ -933,18 +935,12 @@ def serve(torch, np, engine, queries, batch, mesh=None,
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     answers = [(tk.result.paths, tk.result.epoch) for tk in tickets]
-    lat = sorted(tk.result.latency_ms for tk in tickets)
     slabs = [tuple(w.slab.adj.shape) for w in svc.cluster.workers
              if w.slab is not None]
-    stats = dict(wall_s=wall, qps=len(tickets) / wall,
-                 p50_ms=float(np.percentile(lat, 50)),
-                 p99_ms=float(np.percentile(lat, 99)))
     log(f"[serving] {label or engine}: grid {g.n} vertices {g.m} edges, "
         f"DTLP build {build_s:.1f} s (once), slabs {slabs}; {len(tickets)} "
-        f"queries + 1 update in {wall:.2f} s = {stats['qps']:.2f} qps, "
-        f"latency p50 {stats['p50_ms']:.1f} ms p99 {stats['p99_ms']:.1f} "
-        f"ms; launches {launches}")
-    return svc, answers, launches, stats
+        f"queries + 1 update in {wall:.2f} s; launches {launches}")
+    return svc, answers, launches
 
 
 def phase_serving(torch, np):
@@ -952,8 +948,7 @@ def phase_serving(torch, np):
     from repro_torch.core.yen import ksp
 
     g0, queries, batch = serving_trace(np)
-    svc, answers, launches, stats = serve(torch, np, "cuda_bf", queries,
-                                          batch)
+    svc, answers, launches = serve(torch, "cuda_bf", queries, batch)
     check(launches["bf_solve_grouped"] > 0, "serving never launched the kernel")
     check([e for _, e in answers] == [0] * 32 + [1] * 32,
           "results not stamped epoch 0 before the update and 1 after")
@@ -973,22 +968,22 @@ def phase_serving(torch, np):
     log(f"[serving] cuda_bf answers equal host Yen on {len(checks)} queries "
         "(4 per epoch)")
 
-    _, plain_answers, plain_launches, _ = serve(torch, np, "dense_bf",
-                                                queries, batch)
+    _, plain_answers, plain_launches = serve(torch, "dense_bf", queries,
+                                             batch)
     check(plain_answers == answers, "cuda_bf and dense_bf answers differ")
     check(plain_launches["bf_solve_grouped"] == 0,
           "the plain engine launched the kernel")
     log("[serving] cuda_bf (paths, epoch) equal the plain dense_bf engine's "
         "on all 64 queries")
-    return launches, answers, stats
+    return launches, answers
 
 
-def phase_mesh_refine(torch, dev, fused):
+def phase_mesh_refine(torch, dev, fused_ms):
     """``make_refine_fn`` with ``CudaBackend`` at the refine_dense shape,
     on a 1-shard mesh of the card and on 2 logical shards of it: dist and
-    parents bitwise the fused ``bf_solve_grouped``'s, the global iteration
-    count the largest of the fused solve's per-block counts, and the
-    epilogue (``max_iters=0``) returns a converged field unchanged."""
+    parents bitwise the fused ``bf_solve_grouped``'s, one fused launch
+    per shard and no ``bf_relax_step``, its wall time beside the fused
+    solve's ``fused_ms``."""
     from repro_torch.dist.shard_refine import make_refine_fn
     from repro_torch.engine.backend import CudaBackend
     from repro_torch.kernels import bf_relax, ops
@@ -996,15 +991,11 @@ def phase_mesh_refine(torch, dev, fused):
 
     S, J, z = DENSE_S, DENSE_J, DENSE_Z
     args = road_inputs(torch, S, J, z, dev)
-    want_d, want_p, iters, _ = bf_relax.solve_grouped(*args)
-    d0, p0 = ops.bf_solve_grouped(args[0], want_d, *args[2:], max_iters=0)
-    check(torch.equal(d0, want_d) and torch.equal(p0, want_p),
-          "max_iters=0 changed a converged field or its parents")
-    global_iters = int(iters.max())
+    want_d, want_p, _, _ = bf_relax.solve_grouped(*args)
     out = {}
     for n in (1, 2):
-        mesh = make_host_mesh(device=[dev] * n)
-        refine = make_refine_fn(mesh, backend=CudaBackend())
+        refine = make_refine_fn(make_host_mesh(device=[dev] * n),
+                                backend=CudaBackend())
         walls = []
         for _ in range(3):
             ops.reset_launches()
@@ -1016,128 +1007,40 @@ def phase_mesh_refine(torch, dev, fused):
             launches = dict(ops.LAUNCHES)
             check(torch.equal(d, want_d) and torch.equal(p, want_p),
                   ("mesh refine differs from the fused solve", n))
-        check(launches["bf_relax_step"] == n * global_iters
-              and launches["bf_solve_grouped"] == n,
-              ("mesh refine iterations", n, launches, global_iters))
+        check(launches["bf_solve_grouped"] == n
+              and launches["bf_relax_step"] == 0,
+              ("mesh refine launches", n, launches))
         wall = statistics.median(walls)
-        out[f"{n}_shard"] = dict(wall_ms=wall, iterations=global_iters,
-                                 launches=launches)
+        out[f"{n}_shard"] = dict(wall_ms=wall, launches=launches)
         log(f"[mesh-refine] {n} shard(s) on {dev}: S={S} J={J} z={z}, "
-            f"{global_iters} global iterations, launches {launches}, wall "
-            f"{wall:.3f} ms (median of 3, host clock, one flag read per "
-            f"iteration); dist and parents bitwise the fused solve's "
-            f"({fused['ms']:.3f} ms)")
-    # what the loop spends beyond its launches, on one shard: the
-    # banned-vertex re-mask and the change test (elementwise passes over
-    # the [S,J,z] field, timed here) and the host's flag read
-    from repro_torch.kernels.ref import INF
-
-    new = ops.bf_relax_step(args[1], args[0], args[3], args[4], args[5])
-    remask_ms = cuda_ms(torch, lambda: torch.where(args[2], INF, new),
-                        repeats=7)
-    test_ms = cuda_ms(torch, lambda: (new < args[1]).any(), repeats=7)
-    over = (out["1_shard"]["wall_ms"] - global_iters * fused["step_ms"]
-            - fused["fixed_ms"]) / global_iters
-    log(f"[mesh-refine] 1 shard: wall minus {global_iters} x "
-        f"{fused['step_ms']:.3f} ms of bf_relax_step and "
-        f"{fused['fixed_ms']:.3f} ms of epilogue leaves {over:.3f} ms per "
-        f"iteration: the re-mask {remask_ms:.3f} ms and the change test "
-        f"{test_ms:.3f} ms (CUDA events, median of 7), the rest the flag "
-        f"read and the launches")
-    out.update(ms_per_iteration_beyond_step=over, remask_ms=remask_ms,
-               change_test_ms=test_ms)
+            f"launches {launches}, wall {wall:.3f} ms (median of 3, host "
+            f"clock around a synchronize); dist and parents bitwise the "
+            f"fused solve's ({fused_ms:.3f} ms, CUDA events)")
     return out
 
 
-def step_path_recorder(torch):
-    """Wrap ``bf_relax.relax_step`` (the launcher ``ops.bf_relax_step``
-    calls) so each launch also returns its per-block path report, held
-    on the card beside the path the data dictates, and its output is
-    held bitwise against the plain step (``ref.bf_relax_ref``) on the
-    same inputs; returns (restore, summary)."""
-    from repro_torch.kernels import bf_relax, ref
-
-    launch = bf_relax.relax_step
-    seen = []
-    shapes = {}
-    unequal = []
-
-    def recording(dist, adj, so, bn, cap):
-        out, path = launch(dist, adj, so, bn, cap, with_path=True)
-        S, J, z = dist.shape
-        jt = bf_relax.tile_width(J, z, bf_relax.step_smem)
-        want = bf_step_path(torch, dist, cap, adj, jt,
-                            bf_relax.step_layout(jt, z)[0])
-        seen.append((path, want))
-        shapes[(S, J, z)] = shapes.get((S, J, z), 0) + 1
-        if not torch.equal(out, ref.bf_relax_ref(dist, adj, so, bn, cap)):
-            unequal.append((S, J, z))
-        return out
-
-    def restore():
-        bf_relax.relax_step = launch
-
-    def summary():
-        n_list = sum(int(p.sum()) for p, _ in seen)
-        blocks = sum(p.numel() for p, _ in seen)
-        agree = all(torch.equal(p, w) for p, w in seen)
-        return dict(launches=len(seen), list_blocks=n_list,
-                    dense_blocks=blocks - n_list, as_dictated=agree,
-                    equal_to_plain=not unequal, unequal=unequal[:5],
-                    shapes={"x".join(map(str, k)): n
-                            for k, n in sorted(shapes.items())})
-
-    bf_relax.relax_step = recording
-    return restore, summary
-
-
-def phase_mesh_serving(torch, np, answers, stats):
+def phase_mesh_serving(torch, np, answers):
     """The serving trace on ``cuda_bf`` over a 1-shard mesh of the card,
     barrier and streaming: every (paths, epoch) equal to the non-mesh
     run's (its update lands between two drained replays, so both modes
-    serve the same answers), ``bf_relax_step`` launched, and in the
-    streaming run every step launch bitwise equal to the plain step on
-    its inputs and every block's path report as the data dictates."""
+    serve the same answers), with ``bf_solve_grouped`` launched and
+    ``bf_relax_step`` not."""
     from repro_torch.launch.mesh import make_host_mesh
 
     _, queries, batch = serving_trace(np)
     mesh = make_host_mesh(1)
     out = {}
     for mode in ("barrier", "streaming"):
-        restore, summary = (step_path_recorder(torch) if mode == "streaming"
-                            else (None, None))
-        try:
-            _, got, launches, st = serve(
-                torch, np, "cuda_bf", queries, batch, mesh=mesh,
-                update_mode=mode, label=f"cuda_bf on a 1-shard mesh, {mode}")
-        finally:
-            if restore:
-                restore()
+        _, got, launches = serve(
+            torch, "cuda_bf", queries, batch, mesh=mesh,
+            update_mode=mode, label=f"cuda_bf on a 1-shard mesh, {mode}")
         check(got == answers, ("mesh serving answers differ", mode))
-        check(launches["bf_relax_step"] > 0
-              and launches["bf_solve_grouped"] > 0,
-              ("mesh serving did not launch both kernels", mode, launches))
-        out[mode] = dict(launches=launches, **st)
-        if summary:
-            paths = summary()
-            check(paths["as_dictated"] and paths["launches"] ==
-                  launches["bf_relax_step"],
-                  ("bf_relax_step path reports in mesh serving", paths))
-            check(paths["equal_to_plain"],
-                  ("bf_relax_step differs from plain in mesh serving",
-                   paths["unequal"]))
-            out[mode]["step_paths"] = paths
-            log(f"[mesh-serving] bf_relax_step ({mode}, the recorder on): "
-                f"every launch bitwise equal to the plain step on its "
-                f"inputs, launches by (S, J, z) {paths['shapes']}; path "
-                f"reports as the data dictates: {paths['launches']} "
-                f"launches, {paths['list_blocks']} blocks on the list, "
-                f"{paths['dense_blocks']} dense")
-    log(f"[mesh-serving] (paths, epoch) of all 64 queries equal the "
-        f"non-mesh cuda_bf run's in both modes; p50/p99/qps: non-mesh "
-        f"{stats['p50_ms']:.1f}/{stats['p99_ms']:.1f}/{stats['qps']:.2f}, "
-        + ", ".join(f"mesh {m} {v['p50_ms']:.1f}/{v['p99_ms']:.1f}/"
-                    f"{v['qps']:.2f}" for m, v in out.items()))
+        check(launches["bf_solve_grouped"] > 0
+              and launches["bf_relax_step"] == 0,
+              ("mesh serving launches", mode, launches))
+        out[mode] = dict(launches=launches)
+    log("[mesh-serving] (paths, epoch) of all 64 queries equal the "
+        "non-mesh cuda_bf run's in both modes")
     return out
 
 
@@ -2781,20 +2684,16 @@ def main() -> int:
         torch, dev)
     index_launches, index_timings = phase_index_build(torch, np)
     timings.update(index_timings)
-    launches, answers, serving_stats = phase_serving(torch, np)
+    launches, answers = phase_serving(torch, np)
     launches = {name: n + index_launches[name]
                 for name, n in launches.items()}
     torch.cuda.empty_cache()
-    mesh_refine = phase_mesh_refine(torch, dev, dict(
-        ms=timings["bf_solve_grouped"]["ms"],
-        step_ms=timings["bf_relax_step"]["ms"],
-        fixed_ms=timings["bf_solve_grouped"]["epilogue_ms"]))
+    mesh_refine = phase_mesh_refine(torch, dev,
+                                    timings["bf_solve_grouped"]["ms"])
     torch.cuda.empty_cache()
-    mesh_serving = phase_mesh_serving(torch, np, answers, serving_stats)
+    mesh_serving = phase_mesh_serving(torch, np, answers)
     launches = {name: n + mesh_serving["barrier"]["launches"][name]
                 for name, n in launches.items()}
-    check(launches["bf_relax_step"] > 0,
-          ("no path launched bf_relax_step", launches))
     phase_driver()
     bound_dist_cases = phase_ragged_index(torch, np, dev)
     torch.cuda.empty_cache()
@@ -2806,9 +2705,8 @@ def main() -> int:
                     for name, n in path_launches.items()}
         torch.cuda.empty_cache()
     timings["bound_dist"]["cases_ms"] = bound_dist_cases
-    timings["bf_relax_step"]["mesh_refine"] = mesh_refine
-    timings["bf_relax_step"]["mesh_serving"] = mesh_serving
-    timings["bf_solve_grouped"]["serving"] = serving_stats
+    timings["bf_solve_grouped"]["mesh_refine"] = mesh_refine
+    timings["bf_solve_grouped"]["mesh_serving"] = mesh_serving
     phase_kspdg_smoke()
     torch.cuda.empty_cache()
     phase_lm_serving(torch, np, dev, smi)

@@ -8,8 +8,8 @@ Layering (host → device):
   weight maintenance, rescale, checkpoint/restore
 * ``grouped_yen``  — lockstep Yen over the [S, J, z] grouped BF batch
 * ``scheduler``    — cross-query batched serving: concurrent queries run
-  as lockstep steppers whose refine tasks are merged (de-duped) into
-  shared per-worker grouped solves, behind a bounded admission queue
+  as resumable steppers whose refine tasks are merged (de-duped) into
+  shared per-worker pipelined solves, behind a bounded admission queue
 * ``shard_refine`` — the multi-device refine/update/allreduce over a
   ``repro_torch.launch.mesh.DeviceMesh`` (``torch.distributed`` across
   processes)

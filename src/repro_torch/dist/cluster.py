@@ -590,14 +590,16 @@ class Cluster:
                     f"mesh devices {[str(d) for d in shards]} are not of "
                     f"the cluster's device type {device.type!r}")
             device = shards[0]
-            solver, s_multiple = self.spec.make_mesh_solver(
-                self.mesh, self.mesh_axis
-            )
             # device-resident placement + on-device patching for the
             # mesh path: slabs live split over the S axis across ticks
             from repro_torch.dist.shard_refine import (describe_mesh,
-                                                       make_update_fn)
+                                                       make_refine_fn,
+                                                       make_update_fn,
+                                                       shard_count)
 
+            solver = make_refine_fn(self.mesh, self.mesh_axis,
+                                    backend=self.spec.backend)
+            s_multiple = shard_count(self.mesh, self.mesh_axis)
             update_fn = make_update_fn(self.mesh, axis=self.mesh_axis)
             mesh_desc = describe_mesh(self.mesh, self.mesh_axis)
         self._mesh_desc = mesh_desc

@@ -11,11 +11,11 @@ for, Section 6.1's SubgraphBolt batching).
 Execution is pluggable: a :class:`repro_torch.engine.backend.SolverBackend`
 supplies both the solve (the plain PyTorch ``bf_solve_grouped`` or the
 fused Hopper kernel) and the bucket geometry (its ``SlabLayout`` owns
-the hot-row packing rule); a mesh ``solver`` override (a
-``shard_refine.make_refine_fn`` product) replaces the execution while
-the backend keeps supplying geometry.  Round buffers go to the solve's ``device``
-when dispatched; the host copies results back only in
-``_collect_round``.
+the hot-row packing rule); a mesh ``solver`` (a
+``shard_refine.make_refine_fn`` product) splits each round's rows over
+the mesh's shards and runs the backend's solve on each.  Round buffers
+go to the solve's ``device`` when dispatched; the host copies results
+back only in ``_collect_round``.
 
 Exactness: per task this is exactly ``engine.yen_engine.engine_ksp`` —
 the grouping changes the schedule, not the math.
@@ -46,10 +46,9 @@ def _dispatch_round(adj, jobs, solver, s_multiple, backend, gather=None,
     refine).  ``gather`` sources the round's adjacency from a
     device-resident slab copy instead of a host copy (see
     ``SlabLayout.pack_round``).  The buffers move to ``device`` and the
-    solve is queued there; the backend's solve returns tensors the
-    device is still computing while the host moves on (the host waits
-    only in ``_collect_round``; a mesh refine reads its change flag once
-    per iteration).
+    solve is queued there; the backend's solve, or a mesh refine of it,
+    returns tensors the device is still computing while the host moves
+    on (the host waits only in ``_collect_round``).
 
     Returns an opaque pending handle for ``_collect_round``, or None on
     zero jobs.
@@ -83,14 +82,6 @@ def _collect_round(pending):
     if tracing:
         obs.span_at("collect_round", t0, obs.clock() - t0, jobs=len(slots))
     return [(dist[sr, j], parent[sr, j]) for sr, j in slots]
-
-
-def _solve_round(adj, jobs, solver, s_multiple, backend, gather=None,
-                 device="cuda"):
-    """One grouped solve, dispatch + collect back to back (the lockstep
-    path and tests use this; the pipeline steps the two halves apart)."""
-    return _collect_round(_dispatch_round(adj, jobs, solver, s_multiple,
-                                          backend, gather, device))
 
 
 class _TaskState:

@@ -4,8 +4,8 @@ queries over one worker cluster.
 ``Cluster.query`` drives one KSP-DG instance at a time, so the grouped
 [S, J, z] dense solves run at single-query occupancy.  The
 ``QueryScheduler`` keeps N queries in flight as resumable steppers
-(``core.kspdg.ksp_dg_stepper``) and, in its default **pipelined** mode,
-gives every worker its own asynchronous pipe:
+(``core.kspdg.ksp_dg_stepper``) and gives every worker its own
+asynchronous pipe:
 
     pipe (one per worker):
       backlog  — batches of (gid, a, b) refine tasks waiting to
@@ -24,20 +24,19 @@ gives every worker its own asynchronous pipe:
     does the host-side Yen absorb/promote, and dispatches the next
     round — which then cooks on the device while the pump steps OTHER
     workers' pipes.  Device solves overlap host splicing with no
-    threads: JAX async dispatch does the overlap, the pump does the
+    threads: CUDA's async launches do the overlap, the pump does the
     interleaving.  When a batch completes, every query waiting on it
     splices its segment lists (``cluster.merge_segments``) and advances
     one KSP-DG iteration immediately — a query whose stop rule fires
     resolves its ticket on the spot, at the incrementally-advanced
     clock, not at a global tick boundary.
 
-``pipeline=False`` retains the original lockstep tick (gather → merge →
-dispatch → scatter, one global barrier per round): it is the reference
-schedule the determinism tests replay against, and the two modes produce
-byte-identical answers — the stepper is the same code, every partial-KSP
-solve is exact regardless of batch composition, and ``merge_segments``
-builds the same segment lists, so scheduling changes the overlap, never
-the math.
+The reference keeps a lockstep tick (gather → merge → dispatch →
+scatter, one global barrier per round) beside this pump, and the
+determinism tests hold the pump's answers to it byte for byte: the
+stepper is the same code, every partial-KSP solve is exact regardless
+of batch composition, and ``merge_segments`` builds the same segment
+lists, so scheduling changes the overlap, never the math.
 
 Admission control sits on top: a bounded FIFO queue (``max_queue``), a
 cap on in-flight queries (``max_in_flight``) and, in ``run``, a batch
@@ -47,8 +46,8 @@ scheduler — it adds typed requests, epoch stamping/barriers (via
 ``freeze_admission``) and deadline-based SLO admission (via
 ``predicted_wait``); ``submit``/``run`` here are internals.  Epoch
 safety is per-ticket: every batch carries the ADMISSION epoch of its
-waiting queries (the cross-query join key is (epoch, k, task), both
-modes), and workers are told which epoch to solve at.  In barrier mode
+waiting queries (the cross-query join key is (epoch, k, task)), and
+workers are told which epoch to solve at.  In barrier mode
 update batches still apply only while ``active`` is empty, so all
 in-flight dedup shares one epoch and behavior is byte-identical to the
 pre-epoch-fencing scheduler; in streaming mode a swap may commit with
@@ -82,8 +81,7 @@ class BatchStats:
     max_queue_depth: int = 0
     max_in_flight: int = 0
     # pipeline occupancy: peak dispatched-but-unfinished batches across
-    # all pipes (≤ n_workers × pipeline_depth; 1 in lockstep mode where
-    # exactly one batch is ever in flight)
+    # all pipes (≤ n_workers × pipeline_depth)
     max_inflight_batches: int = 0
     # wall seconds inside working (non-idle) ticks, and the share each
     # worker spent actually being driven (dispatch + step + deliver):
@@ -98,8 +96,7 @@ class BatchStats:
         ``tasks_requested`` counts every per-query task at gather time;
         ``tasks_dispatched`` counts unique tasks per dispatched worker
         batch — so joins against both QUEUED and IN-FLIGHT batches
-        (per-worker pipeline dedup) land here, exactly like the
-        per-global-tick merge did in lockstep mode.
+        (per-worker pipeline dedup) land here.
         """
         return self.tasks_requested - self.tasks_dispatched
 
@@ -256,21 +253,20 @@ def drive_trace(sched, arrivals, submit_at, tick, *,
 
 
 class QueryScheduler:
-    """Cross-query batching over a ``Cluster`` — pipelined by default,
-    lockstep under ``pipeline=False``.
+    """Cross-query batching over a ``Cluster``, one asynchronous pipe
+    per worker.
 
     The scheduler keeps its own simulated clock: ``run`` advances it by
     measured wall time plus the arrival process, so latency percentiles
     reflect queueing delay under the given concurrency even though
-    execution is single-threaded in-process.  In pipelined mode the
-    clock advances *incrementally inside* a tick, so a query completing
-    mid-pump is stamped at its actual completion instant.
+    execution is single-threaded in-process.  The clock advances
+    *incrementally inside* a tick, so a query completing mid-pump is
+    stamped at its actual completion instant.
     """
 
     def __init__(self, cluster: Cluster, *, max_in_flight: int = 8,
                  max_queue: int | None = None, max_iterations: int = 10_000,
-                 ref_stream=None, pipeline: bool = True,
-                 pipeline_depth: int = 2):
+                 ref_stream=None, pipeline_depth: int = 2):
         self.cluster = cluster
         self.max_in_flight = max(1, int(max_in_flight))
         self.max_queue = None if max_queue is None else int(max_queue)
@@ -279,7 +275,6 @@ class QueryScheduler:
         # inherits the cluster engine spec's default ("lazy" builtin)
         self.ref_stream = (cluster.spec.ref_stream if ref_stream is None
                            else ref_stream)
-        self.pipeline = bool(pipeline)
         self.pipeline_depth = max(1, int(pipeline_depth))
         self.queue: deque[QueryTicket] = deque()
         self.active: list[QueryTicket] = []
@@ -288,15 +283,15 @@ class QueryScheduler:
         self._qid = itertools.count()
         self.clock = 0.0
         # EWMA of working-tick wall latency (seconds): the queue-depth
-        # term of predicted_wait in both modes (a pipelined tick is one
-        # pump round: bounded by a single batch delivery)
+        # term of predicted_wait (a tick is one pump round: bounded by a
+        # single batch delivery)
         self.tick_latency_ewma = 0.0
         self._tick_samples = 0
         # epoch barrier hook (repro.service): while True, ticks keep
         # advancing in-flight queries but admit nothing, so a pending
         # UpdateBatch can be ordered after every query it must not affect
         self.freeze_admission = False
-        # pipelined-mode state: per-worker pipes, the cross-query join
+        # pipe state: per-worker pipes, the cross-query join
         # index (epoch, k, gid, a, b) → _Batch (queued OR in flight),
         # and the incremental clock mark (valid inside a tick only)
         self._pipes: dict[int, _WorkerPipe] = {}
@@ -306,16 +301,13 @@ class QueryScheduler:
     def predicted_wait(self) -> float:
         """Predicted queueing delay (seconds) of the next submission.
 
-        Lockstep: EWMA of recent tick latency × admission-queue depth.
-        Pipelined: the deepest worker pipe bounds service — backlog +
-        in-flight batches × that pipe's solve-time EWMA — plus the same
-        queue term for submissions still waiting to be admitted.  Zero
-        until first observations — admission must not reject on a cold
-        scheduler.
+        The deepest worker pipe bounds service — backlog + in-flight
+        batches × that pipe's solve-time EWMA — plus EWMA of recent tick
+        latency × admission-queue depth for submissions still waiting to
+        be admitted.  Zero until first observations — admission must not
+        reject on a cold scheduler.
         """
         queue_term = self.tick_latency_ewma * len(self.queue)
-        if not self.pipeline:
-            return queue_term
         worst = 0.0
         for pipe in self._pipes.values():
             if pipe.solve_ewma > 0.0 and pipe.depth:
@@ -369,7 +361,7 @@ class QueryScheduler:
         if self.freeze_admission:
             return
         while self.queue and len(self.active) < self.max_in_flight:
-            self._stamp_clock()  # pipelined: admit at the current instant
+            self._stamp_clock()  # admit at the current instant
             tk = self.queue.popleft()
             tk.admitted_at = self.clock
             tk.epoch = self.cluster.epoch  # the epoch that will answer it
@@ -388,8 +380,7 @@ class QueryScheduler:
                         s=tk.s, t=tk.t, k=tk.k, epoch=tk.epoch)
             if not tk.done:
                 self.active.append(tk)
-                if self.pipeline:
-                    self._gather(tk)
+                self._gather(tk)
         self.stats.max_in_flight = max(self.stats.max_in_flight,
                                        len(self.active))
 
@@ -407,11 +398,10 @@ class QueryScheduler:
             self.finished.append(tk)
             self.stats.completed += 1
 
-    # -------------------------------------------------- pipelined serving
+    # ------------------------------------------------------------ the pipes
     def _stamp_clock(self) -> None:
         """Advance the simulated clock by the wall time elapsed since
-        the last stamp — the incremental form of lockstep's one
-        clock-add per tick, valid only inside a pipelined tick."""
+        the last stamp; valid only inside a tick."""
         if self._mark is None:
             return
         now = obs.clock()
@@ -543,11 +533,16 @@ class QueryScheduler:
         else:
             self._gather(tk)
 
-    def _tick_pipeline(self) -> list[QueryTicket]:
-        """One pump round: fill dispatch slots, step every pipe's oldest
-        in-flight batch one device round, deliver completions.  Returns
-        after ≥ 1 batch delivery (so the replay loop can interleave
-        arrivals) or when nothing is in flight."""
+    # ---------------------------------------------------------------- tick
+    def tick(self) -> list[QueryTicket]:
+        """Advance the system one pump round; returns queries that
+        completed, stamped at their actual in-pump instant.
+
+        A round fills every pipe's dispatch slots, steps each pipe's
+        oldest in-flight batch one device round and delivers
+        completions.  It returns after ≥ 1 batch delivery (so the replay
+        loop can interleave arrivals) or when nothing is in flight.
+        """
         t_begin = obs.clock()
         self._mark = t_begin
         n_fin = len(self.finished)
@@ -598,102 +593,6 @@ class QueryScheduler:
         self._stamp_clock()
         self._mark = None
         return self.finished[n_fin:]
-
-    # ---------------------------------------------------------------- tick
-    def tick(self) -> list[QueryTicket]:
-        """Advance the system one round; returns queries that completed.
-
-        Pipelined mode: one pump round (see :meth:`_tick_pipeline`) with
-        completions stamped at their actual in-pump instant.  Lockstep
-        mode: the classic global tick — the whole tick, admission
-        (stepper priming does the extended-skeleton build and first
-        reference-path search) through scatter, is clocked, and
-        completions are stamped with the POST-tick clock.
-        """
-        if self.pipeline:
-            return self._tick_pipeline()
-        t0 = obs.clock()
-        n_fin = len(self.finished)
-        self._admit()
-        if not self.active:
-            self.clock += obs.clock() - t0
-            for tk in self.finished[n_fin:]:
-                tk.finished_at = self.clock
-            return self.finished[n_fin:]
-        self.stats.ticks += 1
-        # gather: group every active query's pairs, route to workers,
-        # de-dup identical (gid, a, b) tasks across queries
-        gathered = []  # (ticket, pair_gids)
-        # (wid, k, epoch) → {(gid, a, b): None} ordered de-dup: epoch is
-        # part of the batch identity so in-flight queries fenced at the
-        # previous epoch (streaming handoff) never share a solve — or a
-        # cache line — with queries admitted after the swap.  Barrier
-        # mode admits every active query at one epoch, so the extra key
-        # component changes nothing there.
-        merged: dict = {}
-        for tk in self.active:
-            req = tk._request
-            pair_gids, groups = refine_groups(self.cluster.dtlp, req.pairs,
-                                              req.home)
-            gathered.append((tk, pair_gids))
-            for gid, items in groups.items():
-                worker, reissued = self.cluster.route(gid)
-                if reissued:
-                    self.cluster.reissues += len(items)
-                tasks = merged.setdefault((worker.wid, req.k, tk.epoch), {})
-                for _, a, b in items:
-                    self.stats.tasks_requested += 1
-                    tasks.setdefault((gid, a, b), None)
-        # dispatch: one execute per worker (per distinct k and epoch) —
-        # all queries' misses share the same grouped slab solve and
-        # cache entries
-        results: dict = {}  # (k, epoch) → {(gid, a, b): [(dist, path)]}
-        for (wid, k, epoch), tasks in merged.items():
-            self.stats.tasks_dispatched += len(tasks)
-            self.stats.batches_dispatched += 1
-            self.stats.max_inflight_batches = max(
-                self.stats.max_inflight_batches, 1)
-            tw0 = obs.clock()
-            results.setdefault((k, epoch), {}).update(
-                self.cluster.workers[wid].execute(list(tasks), k,
-                                                  epoch=epoch)
-            )
-            tw = obs.clock() - tw0
-            self.stats.worker_busy_s[wid] = (
-                self.stats.worker_busy_s.get(wid, 0.0) + tw)
-            obs.span_at("solve", tw0, tw, worker=wid, epoch=epoch, k=k,
-                        tasks=len(tasks))
-        # scatter: per-query segment lists, one KSP-DG step each
-        still_active = []
-        for tk, pair_gids in gathered:
-            req = tk._request
-            ts0 = obs.clock()
-            seg_lists = merge_segments(req.pairs, pair_gids,
-                                       results.get((req.k, tk.epoch), {}),
-                                       req.k)
-            req.stats.refine_tasks += len(req.pairs)
-            tk.ticks += 1
-            self._advance(tk, seg_lists)
-            obs.span_at("splice", ts0, obs.clock() - ts0, qid=tk.qid,
-                        pairs=len(req.pairs), iteration=tk.ticks,
-                        done=tk.done)
-            if not tk.done:
-                still_active.append(tk)
-        self.active = still_active
-        dt = obs.clock() - t0
-        self.clock += dt
-        self.stats.working_s += dt
-        # EWMA over WORKING ticks only — idle ticks are ~free and would
-        # wash the queue-delay predictor toward zero
-        if self._tick_samples == 0:
-            self.tick_latency_ewma = dt
-        else:
-            self.tick_latency_ewma = 0.3 * dt + 0.7 * self.tick_latency_ewma
-        self._tick_samples += 1
-        completed = self.finished[n_fin:]
-        for tk in completed:
-            tk.finished_at = self.clock
-        return completed
 
     def drain(self) -> list[QueryTicket]:
         """Tick until queue and in-flight set are empty; all finished."""

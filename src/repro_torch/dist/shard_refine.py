@@ -7,18 +7,11 @@ devices, one per shard, and optionally a ``torch.distributed`` group of
 processes that each hold as many):
 
 * ``make_refine_fn``    — grouped masked BF refine (solve + parents),
-  subgraph rows split over the mesh's shards.  The per-iteration
-  relaxation is communication-free (problems are co-located with their
-  subgraph's slab row), but the FIXED POINT is global: the convergence
-  flag is an OR over the shards (and an ``all_reduce(MAX)`` over the
-  processes), so every shard keeps stepping until the whole batch has
-  converged.  Extra steps on an already-converged shard are bitwise
-  no-ops (BF relaxation is idempotent at its fixed point), so the mesh
-  solve is byte-identical to the single-device backends.  The
-  relaxation body comes from a
-  :class:`repro_torch.engine.backend.SolverBackend` (``mesh_relax``) —
-  both the plain ``bf_step_grouped`` path and the ``bf_relax_step``
-  kernel run under the same loop;
+  subgraph rows split over the mesh's shards.  Each shard runs its own
+  row block through its backend's ``solve_grouped`` (problems are
+  co-located with their subgraph's slab row, and every [s, j] problem
+  converges on its own), so the mesh solve is byte-identical to the
+  single-device backends and needs no collective but the final gather;
 * ``make_update_fn``    — scatter of edge-weight updates into the
   sharded [S, z, z] adjacency copy (padding rows marked -1 ignored);
 * ``make_allreduce_fn`` — int8-quantized compressed all-reduce with an
@@ -36,7 +29,8 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.engine.dense import INF, ShardedMirror
+from repro_torch import obs
+from repro_torch.engine.dense import ShardedMirror
 
 
 def mesh_axis_names(axis) -> list:
@@ -78,76 +72,54 @@ def _comm_device(mesh) -> torch.device:
     return torch.device("cpu")
 
 
-def make_refine_fn(mesh, axis=("data", "model"), max_iters: int | None = None,
-                   backend=None):
+def make_refine_fn(mesh, axis=("data", "model"), backend=None):
     """(adj [S,z,z], dist0 [S,J,z], bv, so, bn [S,J,z], cap [S,J]) →
     (dist [S,J,z], parent [S,J,z]) with S split over the mesh's shards.
 
-    ``backend`` supplies the per-iteration relaxation body via
-    ``SolverBackend.mesh_relax`` (default: the plain PyTorch backend) —
-    this is how BOTH ``dense_bf`` and ``cuda_bf`` get a mesh path from
-    one wrapper.  Each relaxation step is purely local (problems were
-    grouped next to their subgraph's slab row by the host dispatch);
-    the only collective is the per-iteration OR of the convergence flag,
-    read on the host once per iteration, which keeps every shard relaxing
-    until the GLOBAL fixed point is reached, at most ``max_iters``
-    (default z) iterations.  Shards that converged early relax
-    idempotently, so the result is byte-identical to the single-device
-    ``solve_grouped`` of the same backend.
+    ``backend`` (a :class:`repro_torch.engine.backend.SolverBackend`;
+    default the plain PyTorch one) solves each shard's row block with
+    its own ``solve_grouped``: every [s, j] problem converges on its own,
+    so a shard needs nothing from the others, and the result is
+    byte-identical to the single-device solve of the same backend.
+    Apart from the gather across processes it reads nothing back to the
+    host, so it keeps ``solve_grouped``'s async contract.
 
     S must be a multiple of the shard count (``pack_round``'s
     ``s_multiple``).  Shard g of ``size`` takes rows [g·S/size,
     (g+1)·S/size) to its device; this process runs only its own shards,
     and with a process group the blocks are gathered from every process.
-    The result lands on ``dist0``'s device.
+    The result lands on ``dist0``'s device.  Each call records one
+    ``solve_grouped`` span with the ``mesh=`` label around the shards'
+    own spans.
     """
     if backend is None:
         from repro_torch.engine.backend import TorchBackend
 
         backend = TorchBackend()
-    prep, step, parents = backend.mesh_relax()
     n_shards = shard_count(mesh, axis)
+    desc = describe_mesh(mesh, axis)
 
     def refine(adj, dist0, bv, so, bn, cap):
         S, J, z = dist0.shape
         if S % n_shards:
             raise ValueError(f"S={S} is not a multiple of the mesh's "
                              f"{n_shards} shards")
+        t0 = obs.clock()
         rows = S // n_shards
-        iters = z if max_iters is None else int(max_iters)
         home = dist0.device
         blocks = []
         for i, dev in enumerate(mesh.devices):
             g = mesh.first_shard + i
-            a, d0, b, s_, n_, c = (t[g * rows:(g + 1) * rows].to(dev)
-                                   for t in (adj, dist0, bv, so, bn, cap))
-            so_p, bn_p = prep(s_, n_)
-            blocks.append([a, torch.where(b, INF, d0), b, s_, n_, c,
-                           so_p, bn_p])
-        changed, it = True, 0
-        while changed and it < iters:
-            flags = []
-            for blk in blocks:
-                a, d, b, _, _, c, so_p, bn_p = blk
-                new = step(d, a, b, so_p, bn_p, c)
-                flags.append((new < d).any().to(home))
-                blk[1] = new
-            # one host read per iteration: converged shards keep relaxing
-            # (idempotent) until the slowest shard's problems converge
-            flag = torch.stack(flags).any().to(torch.int32)
-            if mesh.group is not None:
-                import torch.distributed as dist
-
-                flag = flag.to(_comm_device(mesh))
-                dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=mesh.group)
-            changed = bool(flag.item())
-            it += 1
-        dist_out = torch.cat([blk[1].to(home) for blk in blocks])
-        parent = torch.cat([parents(blk[0], blk[1], *blk[2:6]).to(home)
-                            for blk in blocks])
-        if mesh.group is None:
-            return dist_out, parent
-        return _gather(mesh, dist_out), _gather(mesh, parent)
+            blocks.append(backend.solve_grouped(
+                *(t[g * rows:(g + 1) * rows].to(dev)
+                  for t in (adj, dist0, bv, so, bn, cap))))
+        dist_out = torch.cat([d.to(home) for d, _ in blocks])
+        parent = torch.cat([p.to(home) for _, p in blocks])
+        if mesh.group is not None:
+            dist_out, parent = _gather(mesh, dist_out), _gather(mesh, parent)
+        obs.span_at("solve_grouped", t0, obs.clock() - t0,
+                    backend=backend.name, S=S, J=J, z=z, mesh=desc)
+        return dist_out, parent
 
     return refine
 

@@ -4,8 +4,8 @@ An :class:`EngineSpec` packages everything a ``dist.cluster.Worker``
 needs to run one engine — whether it packs a dense slab, the
 :class:`~repro_torch.engine.backend.SolverBackend` that executes (and
 whose :class:`~repro_torch.engine.layout.SlabLayout` owns all slab
-geometry), how to solve a batch of cache-miss refine tasks, and how to
-build a device-mesh solver — and the registry maps names to specs.
+geometry) and how to solve a batch of cache-miss refine tasks — and the
+registry maps names to specs.
 ``repro_torch.service`` re-exports this module as the public way to plug
 in an engine; the builtin specs are
 ``pyen`` (host Yen), ``dense_bf`` (plain PyTorch grouped BF) and
@@ -48,9 +48,8 @@ class EngineSpec:
     solves a batch of partial-KSP tasks against the weights of
     ``epoch``; ``packs_slab`` makes each worker pack its owned subgraphs
     into a dense ``[S, z, z]`` slab at init, with all geometry coming
-    from ``backend.layout``; ``make_mesh_solver(mesh, mesh_axis) ->
-    (solver, s_multiple)`` is optional device-mesh wiring (None = the
-    engine has no mesh path).
+    from ``backend.layout``; an engine with a ``backend`` also runs on
+    a device mesh (``Cluster`` wires ``shard_refine.make_refine_fn``).
     """
 
     name: str
@@ -63,7 +62,6 @@ class EngineSpec:
     refine_async: Callable | None = None
     packs_slab: bool = False
     backend: SolverBackend | None = None
-    make_mesh_solver: Callable | None = None
     # reference-path stream KSP-DG's filter phase consumes when this
     # engine serves a query (``repro_torch.core.refstream`` name)
     ref_stream: str = "lazy"
@@ -76,8 +74,9 @@ class EngineSpec:
 
     @property
     def supports_mesh(self) -> bool:
-        """Whether the spec carries device-mesh wiring."""
-        return self.make_mesh_solver is not None
+        """Whether the engine runs on a device mesh: every engine with
+        a slab backend does, one ``solve_grouped`` per shard."""
+        return self.backend is not None
 
 
 _REGISTRY: dict[str, EngineSpec] = {}
@@ -198,37 +197,6 @@ def _grouped_refine(worker, misses, k, epoch):
             return fin.value
 
 
-def _grouped_mesh_solver(backend):
-    """``make_mesh_solver`` for any slab backend: the grouped-BF fixed
-    point over a device mesh, with this backend's relaxation body
-    (``mesh_relax``) inside the loop."""
-
-    def make(mesh, mesh_axis):
-        from repro_torch import obs
-        from repro_torch.dist.shard_refine import (describe_mesh,
-                                                   make_refine_fn,
-                                                   shard_count)
-
-        refine = make_refine_fn(mesh, axis=mesh_axis, backend=backend)
-        s_multiple = shard_count(mesh, mesh_axis)
-        desc = describe_mesh(mesh, mesh_axis)
-
-        def solver(adj, init, bv, so, bn, cap):
-            # the same contract (and span) as backend.solve_grouped, plus
-            # the mesh= shard-dispatch attr; it reads the change flag on
-            # the host once per iteration, so it returns converged tensors
-            S, J, z = init.shape
-            t0 = obs.clock()
-            out = refine(adj, init, bv, so, bn, cap)
-            obs.span_at("solve_grouped", t0, obs.clock() - t0,
-                        backend=backend.name, S=S, J=J, z=z, mesh=desc)
-            return out
-
-        return solver, s_multiple
-
-    return make
-
-
 register_engine(EngineSpec(
     name="pyen",
     refine=_pyen_refine,
@@ -236,27 +204,23 @@ register_engine(EngineSpec(
     description="host core.yen per pair through the shared PartialKSPCache",
 ))
 
-_TORCH_BACKEND = TorchBackend()
 register_engine(EngineSpec(
     name="dense_bf",
     refine=_grouped_refine,
     refine_async=_grouped_refine_async,
     packs_slab=True,
-    backend=_TORCH_BACKEND,
-    make_mesh_solver=_grouped_mesh_solver(_TORCH_BACKEND),
+    backend=TorchBackend(),
     description="plain PyTorch grouped [S, J, z] Bellman–Ford over "
                 "per-worker slabs",
 ))
 
-_CUDA_BACKEND = CudaBackend()
 register_engine(EngineSpec(
     name="cuda_bf",
     refine=_grouped_refine,
     refine_async=_grouped_refine_async,
     packs_slab=True,
-    backend=_CUDA_BACKEND,
-    make_mesh_solver=_grouped_mesh_solver(_CUDA_BACKEND),
+    backend=CudaBackend(),
     description="fused Hopper bf_solve_grouped kernel over 32-lane slabs "
-                "(bf_relax_step iterated on a mesh; the kernels' plain "
+                "(one launch per shard on a mesh; the kernels' plain "
                 "PyTorch versions on CPU tensors)",
 ))

@@ -2,7 +2,7 @@
 
 The facade over the distributed runtime — typed requests in, epoch-
 stamped results out, with a submit/poll/drain lifecycle wrapping the
-cross-query lockstep scheduler:
+pipelined cross-query scheduler:
 
 * **Epoch-versioned serving.**  Every admitted query is stamped with the
   graph epoch that will answer it.  How an :class:`UpdateBatch` lands is
@@ -160,8 +160,7 @@ class KSPService:
         self.scheduler = QueryScheduler(
             cluster, max_in_flight=cfg.max_in_flight,
             max_queue=cfg.max_queue, max_iterations=cfg.max_iterations,
-            ref_stream=cfg.ref_stream, pipeline=cfg.pipeline,
-            pipeline_depth=cfg.pipeline_depth,
+            ref_stream=cfg.ref_stream, pipeline_depth=cfg.pipeline_depth,
         )
         self.stats = ServiceStats()
         self._qid = itertools.count()

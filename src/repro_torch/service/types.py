@@ -295,13 +295,10 @@ class ServiceConfig:
     # ``repro.core.refstream`` name ("lazy" / "yen"); None inherits the
     # engine spec's default ("lazy" for all builtin engines)
     ref_stream: str | None = None
-    # per-worker asynchronous pipelines (the serving default): device
-    # solves overlap host splicing and finished queries resolve
-    # immediately; False reverts to the global lockstep tick (the
-    # reference schedule — answers are byte-identical either way)
-    pipeline: bool = True
-    # dispatched-but-unforced batches each worker pipe may hold (2 =
-    # double-buffered: one solving on device, one filling on host)
+    # dispatched-but-unforced batches each worker's asynchronous pipe
+    # may hold (2 = double-buffered: one solving on device, one filling
+    # on host); device solves overlap host splicing and finished
+    # queries resolve immediately
     pipeline_depth: int = 2
     # consecutive DeadlineExceeded rejections (no successful admission
     # between them) that trigger one flight-recorder dump — the

@@ -13,7 +13,7 @@ from repro.data.roadnet import grid_road_network as jax_grid
 from repro.dist.grouped_yen import grouped_ksp as jax_grouped_ksp
 from repro.engine import dense as jax_dense
 from repro.engine import layout as jax_layout
-from repro.engine.backend import JnpBackend, PallasBackend
+from repro.engine.backend import JnpBackend
 from repro_torch.convert import graph_from_numpy, slab_from_numpy
 from repro_torch.core.dtlp import DTLP
 from repro_torch.data.roadnet import WeightUpdateStream, grid_road_network
@@ -33,10 +33,6 @@ _JAX_TWIN = {
                                          j_align=8, j_max=32),
 }
 _LAYOUTS = [layout.PLAIN_LAYOUT, layout.HOPPER_LAYOUT]
-
-
-def _t(*arrays):
-    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
 
 
 def _port_graph(g):
@@ -165,29 +161,8 @@ class TestBackends:
         assert get_engine("cuda_bf").supports_mesh
         assert get_engine("dense_bf").supports_mesh
         assert not get_engine("pyen").supports_mesh
-        # each backend's mesh body is one relaxation of its fixed point:
-        # the Pallas kernel's step, then the banned-vertex re-mask (the
-        # jnp step clamps at the cap inside the body), bitwise
-        rng = np.random.default_rng(4)
-        adj, init, bv, so, bn, cap = masked_slab(rng, 2, 3, 24)
-        d0 = np.where(bv, float(jax_dense.INF), init).astype(np.float32)
-        jargs = [jnp.asarray(a) for a in (d0, adj, bv, so, bn, cap)]
-        for name, twin in (("cuda_bf", PallasBackend(interpret=True)),
-                           ("dense_bf", JnpBackend())):
-            prep, step, parents = get_engine(name).backend.mesh_relax()
-            jprep, jstep = twin.mesh_relax()
-            so_p, bn_p = prep(*_t(so, bn))
-            got = step(*_t(d0, adj, bv), so_p, bn_p, *_t(cap))
-            want = jstep(jargs[0], jargs[1], jargs[2], *jprep(*jargs[3:5]),
-                         jargs[5])
-            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-            np.testing.assert_array_equal(
-                parents(*_t(adj, got.numpy(), bv, so, bn, cap)).numpy(),
-                np.asarray(jax_dense.bf_parents_grouped(
-                    jnp.asarray(adj), want, jnp.asarray(so),
-                    jnp.asarray(bn))))
         with pytest.raises(NotImplementedError):
-            SolverBackend().mesh_relax()
+            SolverBackend().solve_grouped(*[None] * 6)
         with pytest.raises(ValueError, match="unknown engine"):
             get_engine("pallas_bf")
 

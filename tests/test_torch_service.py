@@ -2,8 +2,9 @@
 bench_backend_compare``.  One trace — queries, one UpdateBatch, queries —
 through the reference ``dense_bf`` and through the port's ``cuda_bf`` and
 ``dense_bf`` on the CPU device; the ``(paths, epoch)`` lists must be
-equal in both update modes with the pipeline on and off, and on a
-2-shard CPU mesh (the port's form of ``test_backend.py``'s
+equal in both update modes, to the reference's pipelined and lockstep
+schedules alike, and on a 2-shard CPU mesh (the port's form of
+``test_backend.py``'s
 ``test_service_level`` and ``test_streaming.py``'s updates-under-mesh
 tests)."""
 
@@ -31,15 +32,17 @@ def _queries(n_vertices, n, seed=3):
             for _ in range(n)]
 
 
-def _trace(port: bool, engine: str, update_mode: str, pipeline: bool,
+def _trace(port: bool, engine: str, update_mode: str, pipeline=True,
            requests=None, mesh=None):
-    """Replay the trace on a fresh 6x6 grid; returns [(paths, epoch)]."""
+    """Replay the trace on a fresh 6x6 grid; returns [(paths, epoch)].
+    ``pipeline`` picks the reference's schedule; the port has only the
+    pipelined one."""
     api = torch_service if port else jax_service
     g = (grid_road_network if port else jax_grid)(6, 6, seed=0)
     d = (DTLP if port else JaxDTLP).build(g, z=12, xi=4)
-    kw = {"device": "cpu", "mesh": mesh} if port else {}
+    kw = {"device": "cpu", "mesh": mesh} if port else {"pipeline": pipeline}
     svc = api.KSPService(d, api.ServiceConfig(
-        engine=engine, n_workers=2, max_in_flight=4, pipeline=pipeline,
+        engine=engine, n_workers=2, max_in_flight=4,
         update_mode=update_mode, **kw))
     batch = (WeightUpdateStream if port else JaxStream)(
         g, alpha=0.5, tau=0.5, seed=1).next_batch()
@@ -56,11 +59,13 @@ def _trace(port: bool, engine: str, update_mode: str, pipeline: bool,
 @pytest.mark.parametrize("pipeline", [True, False], ids=["pipe", "lockstep"])
 @pytest.mark.parametrize("update_mode", ["barrier", "streaming"])
 def test_paths_and_epochs_equal_reference(update_mode, pipeline):
+    """The port's pipelined schedule serves what the reference serves
+    under either of its schedules."""
     want = _trace(False, "dense_bf", update_mode, pipeline)
     assert [e for _, e in want] == [0] * (_N // 2) + [1] * (_N // 2)
     assert all(paths for paths, _ in want)
     for engine in ("cuda_bf", "dense_bf"):
-        got = _trace(True, engine, update_mode, pipeline)
+        got = _trace(True, engine, update_mode)
         assert got == want, engine
 
 
@@ -76,8 +81,9 @@ def test_mixed_variant_burst_equals_reference():
             lambda s, t, u: api.OneToManyRequest(s, targets=(t, u), k=2),
         ] * (_N // 4)
 
-    want = _trace(False, "dense_bf", "barrier", True, burst(jax_service))
-    got = _trace(True, "cuda_bf", "barrier", True, burst(torch_service))
+    want = _trace(False, "dense_bf", "barrier",
+                  requests=burst(jax_service))
+    got = _trace(True, "cuda_bf", "barrier", requests=burst(torch_service))
     assert got == want
 
 
@@ -85,10 +91,10 @@ def test_mixed_variant_burst_equals_reference():
 @pytest.mark.parametrize("engine", ["cuda_bf", "dense_bf"])
 def test_mesh_serving_equals_reference(engine, update_mode):
     """On a 2-shard CPU mesh (slab copies split over the shards, rounds
-    padded to a multiple of 2, the mesh refine iterating the engine's
-    relaxation) the port serves repro's dense_bf (paths, epoch)."""
-    want = _trace(False, "dense_bf", update_mode, True)
-    got = _trace(True, engine, update_mode, True,
+    padded to a multiple of 2, each shard's rows through the engine's
+    own solve) the port serves repro's dense_bf (paths, epoch)."""
+    want = _trace(False, "dense_bf", update_mode)
+    got = _trace(True, engine, update_mode,
                  mesh=make_host_mesh(2, device="cpu"))
     assert got == want
 
@@ -101,7 +107,7 @@ def _run_mixed(port: bool, mesh=None):
     kw = {"device": "cpu", "mesh": mesh} if port else {}
     svc = api.KSPService.build(g, api.ServiceConfig(
         engine="dense_bf", n_workers=4, z=12, xi=4,
-        update_mode="streaming", pipeline=True, **kw))
+        update_mode="streaming", **kw))
     stream = (WeightUpdateStream if port else JaxStream)(
         g, alpha=0.5, tau=0.5, seed=7)
     done, sent = [], 0

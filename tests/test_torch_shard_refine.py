@@ -31,7 +31,7 @@ from repro.launch import mesh as jax_mesh
 from repro_torch.core.dtlp import DTLP
 from repro_torch.dist.grouped_yen import grouped_ksp
 from repro_torch.dist.shard_refine import (make_allreduce_fn, make_refine_fn,
-                                          make_update_fn)
+                                          make_update_fn, shard_count)
 from repro_torch.engine import dense
 from repro_torch.engine.backend import CudaBackend, TorchBackend
 from repro_torch.engine.registry import get_engine
@@ -228,8 +228,8 @@ class TestRefine:
                                               n_shards):
         """Over 2 and 3 logical shards the refine lands on the bytes of
         repro's single-device solve (the port's too), the uneven case
-        included: converged shards relax idempotently until the chain's
-        shard converges."""
+        included: each shard's solve runs until its own rows converge,
+        the chain's shard longest."""
         port, ref_backend = twins
         args = _PROBLEMS[problem]()
         sd, sp = ref_backend.solve_grouped(*(jnp.asarray(a) for a in args))
@@ -249,17 +249,30 @@ class TestRefine:
         np.testing.assert_array_equal(d.numpy(), np.asarray(sd))
         np.testing.assert_array_equal(p.numpy(), np.asarray(sp))
 
-    def test_iteration_cap_is_kept(self):
-        """A field that has not converged by ``max_iters`` keeps the
-        bytes of that iteration, as the reference's loop does."""
-        args = uneven_problem()
-        for iters in (0, 3):
-            jd, jp = jax_refine_fn(jax.make_mesh((1, 1), AXES),
-                                   max_iters=iters)(*map(jnp.asarray, args))
-            for n in (1, 2, 3):
-                d, p = make_refine_fn(cpu_mesh(n), max_iters=iters)(*_t(args))
-                np.testing.assert_array_equal(d.numpy(), np.asarray(jd))
-                np.testing.assert_array_equal(p.numpy(), np.asarray(jp))
+    @pytest.mark.parametrize("backend", [TorchBackend, CudaBackend],
+                             ids=["dense_bf", "cuda_bf"])
+    def test_each_shard_solves_its_rows_once(self, backend):
+        """Over 2 and 3 shards the mesh solve calls the backend's
+        ``solve_grouped`` once per shard, on that shard's rows of every
+        input, and its result is the single-device solve, bit for bit."""
+        calls = []
+
+        class Recording(backend):
+            def solve_grouped(self, *args):
+                calls.append(args)
+                return super().solve_grouped(*args)
+
+        args = _t(masked_problem())
+        want_d, want_p = backend().solve_grouped(*args)
+        for n in (2, 3):
+            calls.clear()
+            d, p = make_refine_fn(cpu_mesh(n), backend=Recording())(*args)
+            assert torch.equal(d, want_d) and torch.equal(p, want_p)
+            rows = args[0].shape[0] // n
+            assert len(calls) == n
+            for g, got in enumerate(calls):
+                assert all(torch.equal(a, t[g * rows:(g + 1) * rows])
+                           for a, t in zip(got, args))
 
     def test_rows_must_divide(self):
         with pytest.raises(ValueError, match="multiple"):
@@ -284,7 +297,8 @@ class TestRefine:
             tasks += [(row, 0, sg.nv - 1), (row, 1, sg.nv - 2)]
         want = jax_grouped_ksp(jslab.adj, tasks, 3, backend=JnpBackend())
         mesh = cpu_mesh(2)
-        solver, s_multiple = spec.make_mesh_solver(mesh, AXES)
+        solver = make_refine_fn(mesh, AXES, backend=spec.backend)
+        s_multiple = shard_count(mesh, AXES)
         assert s_multiple == 2
         dense.place_slab(slab, "cpu", shards=mesh.devices,
                          s_multiple=s_multiple)
@@ -417,14 +431,9 @@ seen = []
 
 
 class Recording(CudaBackend):
-    def mesh_relax(self):
-        prep, step, parents = super().mesh_relax()
-
-        def record(dist_, adj, *rest):
-            seen.append(adj.clone())
-            return step(dist_, adj, *rest)
-
-        return prep, record, parents
+    def solve_grouped(self, adj, *rest):
+        seen.append(adj.clone())
+        return super().solve_grouped(adj, *rest)
 
 
 mesh = make_host_mesh(device="cpu")
@@ -440,9 +449,10 @@ dist.destroy_process_group()
 
 def test_two_gloo_processes(tmp_path):
     """Two processes, one shard each, joined by gloo through a FileStore:
-    each relaxes only its own row block, and the gathered result is
-    bitwise the one-process result; the compressed all-reduce averages
-    both processes' vectors.  Joined with a timeout: a hang fails."""
+    each solves only its own row block, exactly once, and the gathered
+    result is bitwise the one-process result; the compressed all-reduce
+    averages both processes' vectors.  Joined with a timeout: a hang
+    fails."""
     args = masked_problem()
     rng = np.random.default_rng(6)
     xs = rng.normal(0, 2, (2, 40)).astype(np.float32)
@@ -474,8 +484,8 @@ def test_two_gloo_processes(tmp_path):
         np.testing.assert_array_equal(out["dist"], want_d.numpy())
         np.testing.assert_array_equal(out["parent"], want_p.numpy())
         block = args[0][r * rows:(r + 1) * rows]
-        assert all(np.array_equal(s, block) for s in out["seen"])
-    assert len(outs[0]["seen"]) == len(outs[1]["seen"])  # one global loop
+        assert len(out["seen"]) == 1
+        np.testing.assert_array_equal(out["seen"][0], block)
 
     def quantize(y):
         scale = np.maximum(np.abs(y).max() / np.float32(127),
