@@ -2,11 +2,11 @@
 batches, its readers, and a run of the cell's mix on the CPU.
 
 ``test_kspbench_metrics.py`` checks every reader under ``metrics/``
-against its table ``WANT`` on its own record; this file enters the feed
-readers there with what they read on that record, and checks their
-numbers on a record of its own here.  Besides its four own readers the
-feed cell reads the open-loop cell's window metrics, each through a
-``.feed`` reader that hands over to its twin's."""
+against its table ``WANT`` on its own record, the feed cell's three own
+readers included; this file checks their numbers on a record of its own.
+Besides those the feed cell reads the metrics every cell reads, through
+the same entries and readers (``test_kspbench_metrics.py::
+test_folded_entry``)."""
 
 import math
 import time
@@ -16,30 +16,10 @@ import pytest
 
 from kspbench import cell, reference, roadgen, run
 from kspbench.tests import test_kspbench_metrics as base
-from kspbench.tests import test_kspbench_span_readers as span_readers
 
 FEED = cell.load_json("traffic", "feed-streaming")["streams"][1]
 SMALL = {**cell.load_json("configs", "roadgrid64-streaming"),
          "rows": 16, "cols": 16, "z": 16}
-
-#: on the base record: batches visible 200 and 600 ms after due, one
-#: never; 400 ms of ``epoch_prepare`` over the two applied
-base.WANT.update({
-    "update_visible_p50_ms.feed": 600.0,
-    "epoch_prepare_ms_per_batch.feed": 200.0,
-    "tree_repair_ms_per_batch.feed": None,
-    "ksp_iterations_per_query.feed": 4.0,
-})
-
-#: each ``.feed`` reader that reads as its open-loop twin
-TWINS = {f"{stem}.feed": f"{stem}.open" for stem in (
-    "query_p95_ms", "queue_wait_share", "splice_ms_per_query",
-    "ksp_iterations_per_query", "refine_rounds_per_query",
-    "bf_solve_grouped_roofline", "device_idle_pct", "ref_build_ms_per_query",
-    "ref_next_ms_per_query", "join_ms_per_query", "device_wait_ms_per_query")}
-TWINS["dtlp_bounding_s.feed"] = "dtlp_bounding_s"
-base.WANT.update({name: base.WANT[twin] for name, twin in TWINS.items()})
-
 
 @pytest.fixture(scope="module")
 def net():
@@ -120,12 +100,10 @@ FEED_WANT = {
     "update_visible_p50_ms.feed": 90.0,
     "epoch_prepare_ms_per_batch.feed": 120.0 / 3,
     "tree_repair_ms_per_batch.feed": 9.0 / 3,
-    "ksp_iterations_per_query.feed": 4.0,
 }
 
 
-def _read(name, rec):
-    return cell.load_module(cell.ROOT / "metrics" / f"{name}.py").read(rec)
+_read = base._read
 
 
 @pytest.mark.parametrize("name", sorted(FEED_WANT))
@@ -141,26 +119,6 @@ def test_feed_reader_with_nothing_to_read(name):
     rec.update(updates=[], spans={})
     rec["queries"] = [q for q in rec["queries"] if q["failed"]]
     assert _read(name, rec) is None
-
-
-@pytest.mark.parametrize("name", sorted(TWINS))
-def test_feed_twin_reads_as_its_twin(name):
-    """Listed for the feed cell alone, as its twin is for the open-loop
-    cell, and read by the twin's reader: the same number on a record with
-    every span, and the same nothing on a record without spans, feed or
-    device trace."""
-    twin = TWINS[name]
-    assert base.LISTED[name]["workloads"] == ["feed-streaming"]
-    assert base.LISTED[twin]["workloads"] == ["city-open"]
-    for key in ("unit", "better", "source", "layer", "moves"):
-        assert base.LISTED[name][key] == base.LISTED[twin][key]
-    rec = _rec()
-    rec["spans"] = {**rec["spans"], **span_readers.SPANS}
-    assert _read(name, rec) is not None
-    assert _read(name, rec) == _read(twin, rec)
-    bare = base._rec()
-    bare.update(updates=[], spans={}, device_trace=None, roofline_bound_s=[])
-    assert _read(name, bare) == _read(twin, bare)
 
 
 def test_visible_counts_a_batch_never_visible_as_inf():

@@ -1,6 +1,10 @@
 """Each metric reader on a synthetic record; ``BENCHMARK.json`` against
 the files the harness finds by name; the device trace's reduction on a
-stand-in for the profiler."""
+stand-in for the profiler.
+
+``WANT`` holds every reader under ``metrics/``, the feed cell's own
+readers included (``test_kspbench_feed.py`` checks those on a record of
+its own), so this file runs alone."""
 
 import json
 import math
@@ -20,6 +24,12 @@ METRICS = [LISTED.get(p.name[:-3], {"name": p.name[:-3]})
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 
 
+#: the KSP-DG stepper's spans and the worker's wait on the card
+SPANS = {"skeleton": [(0.0, 0.01)], "ref_build": [(0.01, 0.31)],
+         "ref_next": [(0.31, 0.34), (1.0, 1.03)],
+         "join": [(1.05, 1.2)], "collect_round": [(0.9, 0.93)]}
+
+
 def _rec():
     """Four queries due in a 10-s window: three answered, one failed."""
     q = [
@@ -36,7 +46,7 @@ def _rec():
         "queries": q, "seconds": 10.0, "drain_s": 1.0, "setup_s": 41.5,
         "updates": [(1.0, 1.0, 1.2), (3.0, 3.0, 3.6), (5.0, 5.0, None)],
         "spans": {"queue_wait": [(0.0, 0.9)], "splice": [(0, 0.3), (1, 1.3)],
-                  "epoch_prepare": [(1.0, 1.1), (3.0, 3.3)]},
+                  "epoch_prepare": [(1.0, 1.1), (3.0, 3.3)], **SPANS},
         "sched": {"tasks_requested": 40, "tasks_dispatched": 30},
         "workers": {"tasks": 30, "cache_hits": 6},
         "transfer": {"device_rounds": 12, "host_rounds": 0},
@@ -48,16 +58,84 @@ def _rec():
     }
 
 
+#: on the base record; the span readers per answered query (three)
 WANT = {
-    "answered_qps": 3 / 11.0, "query_p95_ms.open": math.inf,
+    "answered_qps": 3 / 11.0, "query_p95_ms": math.inf,
     "setup_s": 41.5,
-    "queue_wait_share.open": 100 * 0.9 / 4.5,
-    "splice_ms_per_query.open": 200.0,
-    "ksp_iterations_per_query.open": 4.0,
-    "refine_rounds_per_query.open": 4.0,
-    "bf_solve_grouped_roofline.open": 1.0,
-    "device_idle_pct.open": 95.0, "dtlp_bounding_s": 33.0,
+    "queue_wait_share": 100 * 0.9 / 4.5,
+    "splice_ms_per_query": 200.0,
+    "ksp_iterations_per_query": 4.0,
+    "refine_rounds_per_query": 4.0,
+    "bf_solve_grouped_roofline": 1.0,
+    "device_idle_pct": 95.0, "dtlp_bounding_s": 33.0,
+    "ref_build_ms_per_query": 300.0 / 3,
+    "ref_next_ms_per_query": 60.0 / 3,
+    "join_ms_per_query": 150.0 / 3,
+    "device_wait_ms_per_query": 30.0 / 3,
+    # batches visible 200 and 600 ms after due, one never; 400 ms of
+    # ``epoch_prepare`` over the two applied; no ``tree_repair`` span
+    "update_visible_p50_ms.feed": 600.0,
+    "epoch_prepare_ms_per_batch.feed": 200.0,
+    "tree_repair_ms_per_batch.feed": None,
 }
+
+#: each metric that one entry reads in every cell, where the open-loop
+#: and the feed cell read it through twin entries before (``<name>.open``
+#: and ``<name>.feed``; ``dtlp_bounding_s`` and ``dtlp_bounding_s.feed``):
+#: the entry's fields, and what the ``.open`` reader read on ``_rec()``,
+#: on ``_rec()`` with its failed query dropped and on ``_bare()``
+FOLDED = {
+    "query_p95_ms": ("ms", "lower", "host_clock", "scheduler",
+                     (math.inf, 2000.0, math.inf)),
+    "queue_wait_share": ("%", "lower", "program_span", "scheduler",
+                         (20.0, 20.0, None)),
+    "splice_ms_per_query": ("ms", "lower", "program_span",
+                            "KSP-DG host loop", (200.0, 200.0, None)),
+    "ksp_iterations_per_query": ("iterations", "lower", "program_counter",
+                                 "KSP-DG host loop", (4.0, 4.0, 4.0)),
+    "refine_rounds_per_query": ("rounds", "lower", "program_counter",
+                                "worker and refine", (4.0, 4.0, 4.0)),
+    "bf_solve_grouped_roofline": ("%", "higher", "device_trace", "kernels",
+                                  (1.0, 1.0, None)),
+    "device_idle_pct": ("%", "lower", "device_trace", "device",
+                        (95.0, 95.0, None)),
+    "ref_build_ms_per_query": ("ms", "lower", "program_span",
+                               "KSP-DG host loop", (100.0, 100.0, None)),
+    "ref_next_ms_per_query": ("ms", "lower", "program_span",
+                              "KSP-DG host loop", (20.0, 20.0, None)),
+    "join_ms_per_query": ("ms", "lower", "program_span", "KSP-DG host loop",
+                          (50.0, 50.0, None)),
+    "device_wait_ms_per_query": ("ms", "lower", "program_span",
+                                 "worker and refine", (10.0, 10.0, None)),
+    "dtlp_bounding_s": ("s", "lower", "program_span", "index build",
+                        (33.0, 33.0, 33.0)),
+}
+
+
+def _reporting(metric):
+    """The cells that report an end-to-end metric: those its entry lists,
+    or every cell."""
+    cells = [w["name"] for w in BENCH["workloads"]]
+    return LISTED[metric].get("workloads", cells)
+
+
+#: readers that find nothing to read without the program's spans or a
+#: device trace
+NEEDS_TRACE = {"queue_wait_share", "splice_ms_per_query", "device_idle_pct",
+               "bf_solve_grouped_roofline", "ref_build_ms_per_query",
+               "ref_next_ms_per_query", "join_ms_per_query",
+               "device_wait_ms_per_query"}
+
+
+def _bare():
+    """A cell without a feed, spans or a device trace."""
+    rec = _rec()
+    rec.update(updates=[], spans={}, device_trace=None, roofline_bound_s=[])
+    return rec
+
+
+def _read(name, rec):
+    return cell.load_module(cell.ROOT / "metrics" / f"{name}.py").read(rec)
 
 
 def test_every_metric_is_checked_here():
@@ -75,15 +153,39 @@ def test_reader(m):
 @pytest.mark.parametrize("m", METRICS, ids=lambda m: m["name"])
 def test_reader_with_nothing_to_read(m):
     """A cell without a feed, spans or a device trace: a reader returns
-    a number or nothing, never 0 for a share of a roofline."""
-    rec = _rec()
-    rec.update(updates=[], spans={}, device_trace=None, roofline_bound_s=[])
-    mod = cell.load_module(cell.ROOT / "metrics" / f"{m['name']}.py")
-    value = mod.read(rec)
-    if m["name"] in ("queue_wait_share.open", "splice_ms_per_query.open",
-                     "device_idle_pct.open",
-                     "bf_solve_grouped_roofline.open"):
+    a number or nothing, never 0 for a share of a roofline.  A span
+    reader also returns nothing where no query was answered."""
+    value = _read(m["name"], _bare())
+    if m["name"] in NEEDS_TRACE:
         assert value is None
+        if m["source"] == "program_span":
+            rec = _rec()
+            rec["queries"] = [q for q in rec["queries"] if q["failed"]]
+            assert _read(m["name"], rec) is None
+
+
+@pytest.mark.parametrize("name", sorted(FOLDED))
+def test_folded_entry(name):
+    """One entry and one reader where the open-loop and the feed cell had
+    twins: the entry lists every cell that reports the metric it moves and
+    keeps the twins' fields, and the reader gives the ``.open`` reader's
+    number on the same records."""
+    unit, better, source, layer, want = FOLDED[name]
+    entry = LISTED[name]
+    assert entry["workloads"] == _reporting(entry["moves"])
+    assert (entry["unit"], entry["better"], entry["source"],
+            entry["layer"]) == (unit, better, source, layer)
+    assert entry["moves"] == ("setup_s" if name == "dtlp_bounding_s"
+                              else "answered_qps")
+    answered = _rec()
+    answered["queries"] = [q for q in answered["queries"] if not q["failed"]]
+    for rec, value in zip((_rec(), answered, _bare()), want):
+        got = _read(name, rec)
+        assert got is None if value is None else got == pytest.approx(value)
+    twins = {f"{name}.open", f"{name}.feed"}
+    assert not twins & set(LISTED)
+    assert not any((cell.ROOT / "metrics" / f"{t}.py").exists()
+                   for t in twins)
 
 
 def test_percentile_nearest_rank():
